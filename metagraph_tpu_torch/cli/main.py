@@ -1,0 +1,254 @@
+"""The ``metagraph`` CLI of the port: build, annotate, query and stats.
+
+PyTorch counterpart of ``metagraph_tpu/cli/main.py`` for the subset the
+port covers; stdout is byte for byte that of the JAX CLI. Every command
+takes ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of
+the kernels). Any other subcommand or flag exits non-zero with "not yet
+ported".
+
+    python -m metagraph_tpu_torch.cli.main build -k 31 -o graph reads.fa
+    python -m metagraph_tpu_torch.cli.main annotate -i graph --anno-header reads.fa
+    python -m metagraph_tpu_torch.cli.main query -i graph -a graph.column.annodbg.npz q.fa
+    python -m metagraph_tpu_torch.cli.main stats graph
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+# the JAX CLI's other subcommands
+_NOT_PORTED = ("clean", "extend", "merge", "concatenate", "compare", "align",
+               "transform", "transform_anno", "relax_brwt", "assemble",
+               "merge_anno", "server_query", "coordinate", "coordinator",
+               "worker")
+
+
+def log(msg: str):
+    print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
+
+
+def cmd_build(args):
+    from ..graph import io as graph_io
+    from ..graph.boss_construct import build_boss_from_codes
+    from ..graph.dbg_succinct import DbgSuccinct
+    from ..kmer.alphabets import DNA
+    from ..seqio.fasta import read_and_encode
+
+    if args.mode == "primary":
+        raise SystemExit("build: --mode primary is not yet ported")
+    if len(args.fnames) != 1:
+        raise SystemExit("build: exactly one input file (more is not yet "
+                         "ported)")
+    if args.fnames[0].endswith((".kmc_pre", ".kmc_suf", ".vcf", ".vcf.gz")):
+        raise SystemExit("build: KMC and VCF input is not yet ported")
+    codes = read_and_encode(args.fnames[0], DNA)
+    log(f"Encoded {len(codes) / 1e6:.1f} M chars")
+    t0 = time.time()
+    boss = build_boss_from_codes(
+        codes, args.k, alphabet=DNA, mode=args.mode,
+        bits_per_count=args.count_width if args.count_kmers else 0,
+        device=args.device)
+    log(f"Graph construction: {time.time() - t0:.2f} s")
+    graph = DbgSuccinct.from_boss(boss, DNA, args.mode)
+    log(f"Serialized to {graph_io.save_graph(args.outfile_base, graph)}")
+
+
+def _is_annotation_file(path) -> bool:
+    if path.endswith(".annodbg.npz"):
+        return True
+    try:
+        with np.load(path if path.endswith(".npz") else path + ".dbg.npz",
+                     allow_pickle=False) as d:
+            return "labels" in d
+    except (OSError, ValueError):
+        return False
+
+
+def _print_annotation_stats(f, device):
+    from ..anno.annotator import Annotation
+    ann = Annotation.load(f, device=device)
+    log(f"Statistics for annotation '{f}'")
+    print("=================== ANNOTATION STATS ===================")
+    print(f"labels:  {ann.num_labels}")
+    print(f"objects: {ann.matrix.num_rows}")
+    density = ann.matrix.nnz / max(ann.matrix.num_rows, 1) \
+        / max(ann.num_labels, 1)
+    print(f"density: {density:.6g}")
+    print("representation: column")
+    print("========================================================")
+
+
+def cmd_stats(args):
+    from ..graph.io import index_bytes, load_graph
+    for f in args.fnames:
+        if _is_annotation_file(f):
+            _print_annotation_stats(f, args.device)
+            continue
+        g = load_graph(f, device=args.device)
+        if g.mode not in ("basic", "canonical"):
+            raise SystemExit(f"stats: {g.mode} graphs are not yet ported")
+        log(f"Statistics for graph '{f}'")
+        print("====================== GRAPH STATS =====================")
+        print(f"k: {g.k}")
+        print(f"nodes (k): {g.num_nodes()}")
+        print(f"mode: {g.mode}")
+        boss = g.boss
+        if boss.weights is not None:
+            w = boss.weights.cpu().numpy()
+            nnz = int((w != 0).sum())
+            print(f"nnz weights: {nnz}")
+            # %.6g: C++ std::cout default double formatting
+            print(f"avg weight: {w.sum() / max(nnz, 1):.6g}")
+        nbytes = index_bytes(g)
+        print(f"index bytes: {nbytes}")
+        print(f"bytes/edge: {nbytes / max(boss.num_edges, 1):.3g}")
+        print("========================================================")
+        print("====================== BOSS STATS ======================")
+        print(f"k: {boss.k + 1}")
+        print(f"nodes (k-1): {int(boss.num_nodes())}")
+        print(f"edges ( k ): {boss.num_edges}")
+        print(f"state: {'fast' if boss.edge_lanes is not None else 'small'}")
+        counts = boss.char_counts_W().cpu().numpy()
+        letters = g.alphabet.letters
+        pairs = ", ".join(f"'{letters[i]}': {int(counts[i])}"
+                          for i in range(boss.alph_size))
+        print("W stats: {" + pairs + "}")
+        F = boss.F.cpu().numpy()
+        fparts = [f"'{letters[i - 1]}': {int(F[i] - F[i - 1])}"
+                  for i in range(1, boss.alph_size)]
+        fparts.append(f"'{letters[-1]}': {boss.num_edges - int(F[-1])}")
+        print("F stats: {" + ", ".join(fparts) + "}")
+        suf_chars = (16 // boss.bits_per_char) if boss.lut is not None else 0
+        print(f"indexed suffix length: {suf_chars}")
+        print("========================================================")
+
+
+def cmd_annotate(args):
+    from ..engine.annotated_dbg import annotate_sequences
+    from ..graph.io import load_graph
+    from ..seqio.fasta import parse_records
+
+    g = load_graph(args.infile_base, device=args.device)
+    items = []
+    for f in args.fnames:
+        for rec in parse_records(f):
+            labels: List[str] = []
+            if args.anno_filename:
+                labels.append(f)
+            if args.anno_header:
+                labels.append(rec.name.decode())
+            labels.extend(args.anno_label or [])
+            items.append((rec.seq, labels))
+    ann = annotate_sequences(g, items, with_counts=args.count_kmers).finalize()
+    out = args.outfile_base or args.infile_base
+    if not out.endswith(".annodbg.npz"):
+        out = out + ".column.annodbg.npz"
+    ann.save(out)
+    log(f"Serialized annotation to {out} "
+        f"({ann.num_labels} labels, {ann.matrix.nnz} relations)")
+
+
+def cmd_query(args):
+    from ..anno.annotator import Annotation
+    from ..engine.annotated_dbg import AnnotatedDbg, BatchQuery
+    from ..graph.io import load_graph
+    from ..seqio.fasta import BatchFeeder, iter_batches
+
+    g = load_graph(args.infile_base, device=args.device)
+    ann = Annotation.load(args.annotation, device=args.device)
+    bq = BatchQuery(AnnotatedDbg(graph=g, annotation=ann))
+    t0 = time.time()
+    n = idx = 0
+    out = sys.stdout
+    # prefetch: host parsing of the next batch overlaps device work
+    for batch in BatchFeeder(iter_batches(args.fnames,
+                                          batch_bytes=args.batch_size)):
+        seqs = [r.seq for r in batch]
+        if args.count_labels:
+            results = bq.get_top_labels_batch(seqs, args.num_top_labels,
+                                              args.discovery_fraction)
+        else:
+            results = bq.get_labels_batch(seqs, args.discovery_fraction)
+        for rec, res in zip(batch, results):
+            if not res and args.suppress_unlabeled:
+                idx += 1
+                continue
+            head = f"{idx}\t{rec.name.decode()}"
+            if args.count_labels:
+                out.write("\t".join([head] + [f"<{l}>:{c}" for l, c in res])
+                          + "\n")
+            else:
+                out.write(head + "\t" + args.anno_labels_delimiter.join(res)
+                          + "\n")
+            idx += 1
+            n += 1
+    dt = max(time.time() - t0, 1e-9)
+    log(f"Queried {n} sequences in {dt:.2f} s ({n / dt:.0f} reads/s)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="metagraph",
+                                description="MetaGraph on PyTorch (port)")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    def add(name, func):
+        sp = sub.add_parser(name)
+        sp.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the "
+                             "kernels' plain versions)")
+        sp.set_defaults(func=func)
+        return sp
+
+    sp = add("build", cmd_build)
+    sp.add_argument("-k", "--kmer-length", dest="k", type=int, required=True)
+    sp.add_argument("--mode", choices=["basic", "canonical", "primary"],
+                    default="basic")
+    sp.add_argument("--count-kmers", action="store_true")
+    sp.add_argument("--count-width", type=int, default=8)
+    sp.add_argument("-o", "--outfile-base", default="graph")
+    sp.add_argument("fnames", nargs="*")
+
+    sp = add("stats", cmd_stats)
+    sp.add_argument("fnames", nargs="+")
+
+    sp = add("annotate", cmd_annotate)
+    sp.add_argument("-i", "--infile-base", required=True)
+    sp.add_argument("-o", "--outfile-base", default=None)
+    sp.add_argument("--anno-filename", action="store_true")
+    sp.add_argument("--anno-header", action="store_true")
+    sp.add_argument("--anno-label", action="append")
+    sp.add_argument("--count-kmers", action="store_true")
+    sp.add_argument("fnames", nargs="+")
+
+    sp = add("query", cmd_query)
+    sp.add_argument("-i", "--infile-base", required=True)
+    sp.add_argument("-a", "--annotation", required=True)
+    sp.add_argument("--count-labels", action="store_true")
+    sp.add_argument("--suppress-unlabeled", action="store_true")
+    sp.add_argument("--num-top-labels", type=int, default=2 ** 62)
+    sp.add_argument("--discovery-fraction", type=float, default=0.7)
+    sp.add_argument("--labels-delimiter", dest="anno_labels_delimiter",
+                    default=":")
+    sp.add_argument("--batch-size", type=int, default=100 << 20)
+    sp.add_argument("fnames", nargs="+")
+    return p
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in _NOT_PORTED:
+        raise SystemExit(f"metagraph: '{argv[0]}' is not yet ported")
+    args, unknown = build_parser().parse_known_args(argv)
+    if unknown:
+        raise SystemExit(f"metagraph {args.command}: "
+                         f"{' '.join(unknown)}: not yet ported")
+    args.func(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,183 @@
+"""Linear-time passes over sorted packed lanes: the two kernels of the
+construction path, each beside its plain PyTorch version.
+
+PyTorch counterpart of ``metagraph_tpu/common/merge.py``:
+
+  * ``partition_compact`` — stable compaction of kept entries to the
+    front (replaces the Pallas ``_partition_call``); hand-written CUDA in
+    ``csrc/partition.cu``; plain version ``packed.compact``.
+  * ``merge_sorted`` — merge of two sorted lane arrays with payloads
+    (replaces the Pallas ``_merge_call``); hand-written CUDA in
+    ``csrc/merge.cu``; plain version a stable sort of the concatenation.
+    Both versions are stable with A first on ties, where the TPU's
+    bitonic kernel was not.
+
+Each wrapper dispatches on the device of the tensor it is given and on
+nothing else: a CPU tensor takes the plain version, a CUDA tensor
+launches the kernel (or raises). ``partition_launches`` and
+``merge_launches`` count kernel launches, one per wrapper call that
+launched, so a run can show that its main path went through them.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from . import _cuda, packed
+
+partition_launches = 0
+merge_launches = 0
+
+_MAX_LANES = 8
+_MAX_EXTRAS = 2
+
+
+def _check_cuda_args(what: str, lanes: Sequence[torch.Tensor],
+                     extras: Sequence[torch.Tensor], n_extra: int):
+    if n_extra > _MAX_EXTRAS:
+        raise ValueError(f"{what}: {n_extra} payloads; the kernel takes "
+                         f"at most {_MAX_EXTRAS}")
+    dev = lanes[0].device
+    for x in lanes:
+        if x.dtype != packed.LANE_DTYPE or x.dim() != 2:
+            raise TypeError(f"{what}: lanes must be (L, N) int32")
+        if not 1 <= x.shape[0] <= _MAX_LANES:
+            raise ValueError(f"{what}: {x.shape[0]} lanes; the kernel "
+                             f"takes 1 to {_MAX_LANES}")
+        if x.device != dev:
+            raise ValueError(f"{what}: operands on different devices")
+    for e in extras:
+        if e.element_size() != 4 or e.dim() != 1 or e.device != dev:
+            raise TypeError(f"{what}: payloads must be 1-D four-byte "
+                            f"tensors on {dev}")
+
+
+def _ptr(t) -> int:
+    return t.data_ptr() if t is not None else None
+
+
+def _pad_ptrs(ts, k=_MAX_EXTRAS):
+    ts = list(ts) + [None] * (k - len(ts))
+    return [_ptr(t) for t in ts]
+
+
+# ---------------------------------------------------------------------------
+# partition_compact
+# ---------------------------------------------------------------------------
+
+def partition_compact_plain(x: torch.Tensor, keep: torch.Tensor,
+                            capacity: int, *extras: torch.Tensor,
+                            extra_fill: int = 0):
+    """The plain version: ``packed.compact`` (a stable sort on ~keep)."""
+    return packed.compact(x, keep, capacity, *extras, extra_fill=extra_fill)
+
+
+def _partition_cuda(x, keep, capacity, extras, extra_fill):
+    global partition_launches
+    _check_cuda_args("partition_compact", [x], extras, len(extras))
+    L, n = x.shape
+    dev = x.device
+    if keep.shape != (n,) or keep.dtype != torch.bool or keep.device != dev:
+        raise TypeError(f"partition_compact: keep must be (N,) bool on {dev}")
+    x = x.contiguous()
+    keep = keep.contiguous()
+    extras = [e.contiguous() for e in extras]
+    lib = _cuda.lib()
+    out = torch.empty((L, capacity), dtype=packed.LANE_DTYPE, device=dev)
+    eouts = [torch.empty((capacity,), dtype=e.dtype, device=dev)
+             for e in extras]
+    tile = lib.mg_partition_tile()
+    scratch = torch.empty((max(-(-n // tile), 1),), dtype=torch.int32,
+                          device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):          # the runtime launches on it
+        status = lib.mg_partition(
+            x.data_ptr(), L, n, keep.data_ptr(), *_pad_ptrs(extras),
+            len(extras), out.data_ptr(), *_pad_ptrs(eouts), capacity,
+            extra_fill & 0xFFFFFFFF, scratch.data_ptr(), count.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(status, "partition_compact")
+    partition_launches += 1
+    return out, count, tuple(eouts)
+
+
+def partition_compact(x: torch.Tensor, keep: torch.Tensor, capacity: int,
+                      *extras: torch.Tensor, extra_fill: int = 0):
+    """Stable compaction: returns (lanes (L, capacity), TRUE count as a
+    0-d int32 tensor, extras). Kept entries first in their original
+    order; PAD / ``extra_fill`` past the count; entries past
+    ``capacity`` dropped (the count still counts them)."""
+    if x.device.type == "cpu":
+        return partition_compact_plain(x, keep, capacity, *extras,
+                                       extra_fill=extra_fill)
+    if x.device.type != "cuda":
+        raise ValueError(f"partition_compact: no kernel for {x.device}")
+    return _partition_cuda(x, keep, capacity, extras, extra_fill)
+
+
+# ---------------------------------------------------------------------------
+# merge_sorted
+# ---------------------------------------------------------------------------
+
+def merge_sorted_plain(a: torch.Tensor, b: torch.Tensor,
+                       a_extras: Sequence[torch.Tensor] = (),
+                       b_extras: Sequence[torch.Tensor] = ()):
+    """The plain version: a stable sort of concat(A, B) (the JAX
+    package's ``_merge_fallback``)."""
+    lanes = torch.cat([a, b], dim=1)
+    extras = tuple(torch.cat([ea, eb]) for ea, eb in zip(a_extras, b_extras))
+    return packed.sort(lanes, *extras)
+
+
+def _merge_cuda(a, b, a_extras, b_extras):
+    global merge_launches
+    _check_cuda_args("merge_sorted", [a, b],
+                     list(a_extras) + list(b_extras), len(a_extras))
+    L, na = a.shape
+    nb = b.shape[1]
+    if b.shape[0] != L:
+        raise ValueError("merge_sorted: lane counts differ")
+    for ea, eb in zip(a_extras, b_extras):
+        if ea.dtype != eb.dtype or ea.shape != (na,) or eb.shape != (nb,):
+            raise TypeError("merge_sorted: payload i of A and B must share "
+                            "a dtype and match their key counts")
+    dev = a.device
+    a, b = a.contiguous(), b.contiguous()
+    a_extras = [e.contiguous() for e in a_extras]
+    b_extras = [e.contiguous() for e in b_extras]
+    lib = _cuda.lib()
+    ntot = na + nb
+    out = torch.empty((L, ntot), dtype=packed.LANE_DTYPE, device=dev)
+    eouts = [torch.empty((ntot,), dtype=e.dtype, device=dev)
+             for e in a_extras]
+    tile = lib.mg_merge_tile()
+    splits = torch.empty((-(-ntot // tile) + 1,), dtype=torch.int64,
+                         device=dev)
+    with torch.cuda.device(dev):
+        status = lib.mg_merge(
+            a.data_ptr(), na, b.data_ptr(), nb, L, *_pad_ptrs(a_extras),
+            *_pad_ptrs(b_extras), len(a_extras), out.data_ptr(),
+            *_pad_ptrs(eouts), splits.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(status, "merge_sorted")
+    merge_launches += 1
+    return out, tuple(eouts)
+
+
+def merge_sorted(a: torch.Tensor, b: torch.Tensor,
+                 a_extras: Sequence[torch.Tensor] = (),
+                 b_extras: Sequence[torch.Tensor] = ()
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Merge two sorted (PAD-tailed) lane arrays with payloads. Returns
+    (lanes (L, Na+Nb), extras), sorted ascending, PADs at the tail,
+    equal keys in stable order with A's first."""
+    a_extras, b_extras = tuple(a_extras), tuple(b_extras)
+    if len(a_extras) != len(b_extras):
+        raise ValueError("merge_sorted: A and B need the same payloads")
+    if a.device.type == "cpu":
+        return merge_sorted_plain(a, b, a_extras, b_extras)
+    if a.device.type != "cuda":
+        raise ValueError(f"merge_sorted: no kernel for {a.device}")
+    return _merge_cuda(a, b, a_extras, b_extras)

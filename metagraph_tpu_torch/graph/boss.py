@@ -1,0 +1,194 @@
+"""The BOSS table as dense device tensors with batched navigation.
+
+PyTorch counterpart of ``metagraph_tpu/graph/boss.py``. The logical
+arrays are the reference's
+
+    W    : edge labels, +alph_size "minus" flags on non-representative
+           incoming edges
+    last : 1 marks the final outgoing edge of each source node
+    F[c] : #edges whose source node ends in a char < c
+
+held inside blocked rank structures (``common/ranksel.py``), plus the
+sorted packed edge k-mers (``edge_lanes``) as a search accelerator:
+``map_to_edges`` is one batched binary search over them, narrowed by a
+table of bucket starts over the top 16 bits (``lut``). Indexing is
+1-based over edges; row 0 is a sentinel and index 0 means "absent".
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..common import packed
+from ..common.ranksel import BitRank, SymbolRank
+
+
+@dataclass(frozen=True)
+class Boss:
+    k: int                      # node length (edge k-mer has k+1 chars)
+    alph_size: int
+    bits_per_char: int
+    F: torch.Tensor             # (alph_size,) int32
+    last_rank: BitRank
+    W_rank: SymbolRank
+    NF: torch.Tensor            # (alph_size,) int32: rank_last(F[c])
+    edge_lanes: Optional[torch.Tensor] = None   # (L, m-1) sorted edge k-mers
+    weights: Optional[torch.Tensor] = None      # (m,) int32 k-mer counts
+    lut: Optional[torch.Tensor] = None          # (2^16+1,) bucket starts
+    lut_steps: int = 0                          # search rounds per bucket
+
+    # -- construction ------------------------------------------------------
+
+    @staticmethod
+    def from_arrays(k: int, alph_size: int, bits_per_char: int,
+                    W: torch.Tensor, last: torch.Tensor, F: torch.Tensor,
+                    edge_lanes: Optional[torch.Tensor] = None,
+                    weights: Optional[torch.Tensor] = None) -> "Boss":
+        """From full-length W / last (row 0 included) and F."""
+        F = F.to(torch.int32)
+        last_rank, W_rank, NF = _finalize_ranks(
+            W.to(torch.int32), last.to(torch.bool), F, sigma=2 * alph_size)
+        if edge_lanes is not None and edge_lanes.shape[1] > 0:
+            lut, max_bucket = _build_lut(edge_lanes, edge_lanes.shape[1])
+            lut_steps = max(1, int(np.ceil(np.log2(int(max_bucket) + 1))))
+        else:
+            lut, lut_steps = None, 0
+        return Boss(k=k, alph_size=alph_size, bits_per_char=bits_per_char,
+                    F=F, last_rank=last_rank, W_rank=W_rank, NF=NF,
+                    edge_lanes=edge_lanes, weights=weights,
+                    lut=lut, lut_steps=lut_steps)
+
+    @staticmethod
+    def from_finish(k: int, alph_size: int, bits_per_char: int,
+                    kept: torch.Tensor, W: torch.Tensor, last: torch.Tensor,
+                    F: torch.Tensor, n_kept: int,
+                    weights: Optional[torch.Tensor] = None,
+                    lut: Optional[torch.Tensor] = None,
+                    max_bucket: Optional[int] = None) -> "Boss":
+        """From the construction finish buffers: slice to ``n_kept``, add
+        the sentinel row, build the ranks; ``lut``/``max_bucket`` come
+        from the finish."""
+        dev = W.device
+        zero = torch.zeros((1,), dtype=torch.int32, device=dev)
+        W_full = torch.cat([zero, W[:n_kept].to(torch.int32)])
+        last_full = torch.cat([zero.to(torch.bool), last[:n_kept]])
+        w_full = (torch.cat([zero, weights[:n_kept].to(torch.int32)])
+                  if weights is not None else None)
+        F = F.to(torch.int32)
+        last_rank, W_rank, NF = _finalize_ranks(W_full, last_full, F,
+                                                sigma=2 * alph_size)
+        lanes = kept[:, :n_kept] if n_kept > 0 else None
+        if lut is not None and n_kept > 0:
+            lut_steps = max(1, int(np.ceil(np.log2(max_bucket + 1))))
+        else:
+            lut, lut_steps = None, 0
+        return Boss(k=k, alph_size=alph_size, bits_per_char=bits_per_char,
+                    F=F, last_rank=last_rank, W_rank=W_rank, NF=NF,
+                    edge_lanes=lanes, weights=w_full,
+                    lut=lut, lut_steps=lut_steps)
+
+    # -- basic accessors ---------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self.F.device
+
+    @property
+    def W(self) -> torch.Tensor:
+        """(m,) int8 W array (stored inside W_rank)."""
+        return self.W_rank.seq
+
+    @property
+    def last(self) -> torch.Tensor:
+        """(m,) bool last bits (host-materialized from the packed words)."""
+        return torch.from_numpy(self.last_rank.bits_host())
+
+    @property
+    def num_edges(self) -> int:
+        return self.W_rank.n_seq - 1
+
+    def num_nodes(self) -> torch.Tensor:
+        return self.last_rank.num_set
+
+    @property
+    def K(self) -> int:
+        """Edge k-mer length."""
+        return self.k + 1
+
+    def rank_W(self, i: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """#occurrences of c in W[1..i] (W[0] = 0 excluded)."""
+        i = torch.as_tensor(i, device=self.device)
+        c = torch.as_tensor(c, device=self.device)
+        r = self.W_rank.rank(c, i)
+        return r - torch.where((c == 0) & (i >= 0), 1, 0)
+
+    # -- searching ---------------------------------------------------------
+
+    def map_to_edges(self, query_lanes: torch.Tensor) -> torch.Tensor:
+        """Map packed edge k-mers (BOSS layout) to 1-based edge rows;
+        0 = not present. One batched binary search over ``edge_lanes``,
+        narrowed to each query's top-16-bit bucket."""
+        if self.edge_lanes is None:
+            raise NotImplementedError(
+                "small-state graphs (no edge_lanes) are not yet ported")
+        n = self.edge_lanes.shape[1]
+        if self.lut is not None:
+            t = packed.srl(query_lanes[0], 16).to(torch.int64)
+            pos = packed.searchsorted(
+                self.edge_lanes, query_lanes, side="left",
+                lo0=self.lut[t], hi0=self.lut[t + 1], steps=self.lut_steps)
+        else:
+            pos = packed.searchsorted(self.edge_lanes, query_lanes,
+                                      side="left")
+        pos_c = torch.clamp(pos, max=n - 1)
+        hit = packed.eq(self.edge_lanes[:, pos_c], query_lanes)
+        return torch.where(hit, pos_c + 1, 0)
+
+    # -- statistics --------------------------------------------------------
+
+    def char_counts_W(self) -> torch.Tensor:
+        """(alph_size,) total W occurrences folding minus flags."""
+        m = self.num_edges
+        cs = torch.arange(self.alph_size, device=self.device)
+        full = torch.full_like(cs, m)
+        base = self.rank_W(full, cs)
+        flagged = self.rank_W(full, cs + self.alph_size)
+        return base + torch.where(cs == 0, 0, flagged)
+
+    def tensors(self):
+        """Every index tensor the graph holds (for its byte count)."""
+        out = [self.F, self.last_rank.words, self.last_rank.brank,
+               self.last_rank.total, self.W_rank.seq_words,
+               self.W_rank.blocks, self.NF]
+        return out + [t for t in (self.edge_lanes, self.weights, self.lut)
+                      if t is not None]
+
+
+def _finalize_ranks(W: torch.Tensor, last: torch.Tensor, F: torch.Tensor,
+                    sigma: int):
+    """Blocked BitRank over ``last``, SymbolRank over ``W`` and
+    NF[c] = rank_last(F[c])."""
+    last_rank = BitRank.build(last)
+    W_rank = SymbolRank.build(W, sigma)
+    i = torch.clamp(F, -1, last_rank.n - 1)
+    NF = torch.where(i < 0, 0, last_rank.rank1(i)).to(torch.int32)
+    return last_rank, W_rank, NF
+
+
+def _build_lut(edge_lanes: torch.Tensor, n_kept):
+    """(2^16+1,) int32 bucket starts over the top lane's high 16 bits,
+    capped at ``n_kept``, and the largest bucket (a 0-d tensor)."""
+    n = edge_lanes.shape[1]
+    top = packed.srl(edge_lanes[0], 16)
+    lut = torch.searchsorted(
+        top, torch.arange(1 << 16, dtype=top.dtype, device=top.device),
+        side="left").to(torch.int32)
+    lut = torch.cat([lut, torch.full((1,), n, dtype=torch.int32,
+                                     device=top.device)])
+    lut = torch.minimum(lut, torch.as_tensor(n_kept, dtype=torch.int32,
+                                             device=top.device))
+    return lut, torch.max(torch.diff(lut))

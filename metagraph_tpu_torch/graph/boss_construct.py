@@ -1,0 +1,431 @@
+"""BOSS construction: sorted packed k-mer sets on the device.
+
+PyTorch counterpart of ``metagraph_tpu/graph/boss_construct.py``, for
+the slice the single-shard DNA build runs (modes ``basic`` and
+``canonical``, with or without k-mer counts):
+
+  collect     upload the uint8 codes; pack every window in the 2-bit
+              domain, fold to canonical form, sort, dedupe and count
+              (``_sort_unique_ones_body``, partition kernel); gather the
+              dummy-edge candidates at the per-run boundary windows,
+              whose positions come from the invalid codes on the host
+  rc closure  canonical mode: append the reverse complements
+              (``_add_rc_stage``, partition + merge kernels)
+  dummies     probe the candidates against the sorted real edges
+              (``_probe_dummies``), then the K-2 source levels
+              (``_levels_phase``)
+  emit        merge the dummies into the real edges (merge kernel) and
+              derive W / last / F / weights (``_emit_body``)
+
+Sizes are dynamic (PyTorch runs eagerly), so the JAX package's capacity
+classes, retry loops, staged large-input finish and host code packing
+are gone; counts stay device tensors and the host syncs twice: once for
+the number of distinct k-mers, once for the finish statistics.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..common import device as devmod
+from ..common import merge as pmerge
+from ..common import packed
+from ..kmer import packing
+from ..kmer.alphabets import Alphabet, DNA, INVALID_CODE
+from ..kmer.extractor import encode_sequences, window_validity
+from .boss import Boss, _build_lut
+
+MODE_BASIC = "basic"
+MODE_CANONICAL = "canonical"
+_PORTED_MODES = (MODE_BASIC, MODE_CANONICAL)
+
+
+def _i32(v, dev) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.int32, device=dev)
+
+
+def _masked(lanes: torch.Tensor, n) -> torch.Tensor:
+    """PAD every column at or past ``n``."""
+    v = packed.valid_mask(lanes.shape[1], n, lanes.device)
+    return torch.where(v[None, :], lanes, packed.PAD_LANE)
+
+
+# ---------------------------------------------------------------------------
+# collect
+# ---------------------------------------------------------------------------
+
+def host_boundary_windows(inval_sorted: np.ndarray, n: int, K: int
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    """Window positions of the per-run boundaries from the sorted
+    invalid-code positions: a maximal valid run [a, b) of length >= K
+    contributes its last window (sink candidate) and its first (source
+    candidate)."""
+    iv = np.concatenate([[-1], inval_sorted.astype(np.int64), [n]])
+    a = iv[:-1] + 1
+    b = iv[1:]
+    ok = (b - a) >= K
+    return (b[ok] - K).astype(np.int64), a[ok].astype(np.int64)
+
+
+def _collect_bounds(codes: torch.Tensor, end_pos: torch.Tensor,
+                    start_pos: torch.Tensor, K: int, B: int,
+                    canonical: bool, complement):
+    """Windows -> sorted unique k-mers + counts, plus the boundary dummy
+    candidates gathered at ``end_pos`` / ``start_pos``.
+
+    The big sort runs in the 2-BIT domain (chars stored as c-1): real
+    k-mers never hold the sentinel, c -> c-1 is monotone, and for
+    K <= 31 one int64 key carries a whole k-mer. The survivors expand to
+    the 4-bit domain once (``packed.expand2to4``)."""
+    assert B == 4
+    nw = codes.shape[0] - K + 1
+    ok = window_validity(codes, K)
+    codes2 = (codes - 1) & 3                # uint8 wraps; invalid masked
+    lanes2 = packing.pack_windows(codes2, K, 2)
+    if (2 * K) % 32 == 0:
+        # full top lane: an all-T k-mer would equal PAD; one zero top
+        # lane keeps PAD strictly above every real key
+        lanes2 = torch.cat([packed.zeros(nw, 1, codes.device), lanes2])
+    L2 = lanes2.shape[0]
+    low = L2 - packed.num_lanes(K, 2)
+
+    def gather_nodes(pos, project):
+        return project(packed.expand2to4(lanes2[low:, pos], K))
+
+    sink_cand = gather_nodes(
+        end_pos, lambda w: packing.node_key(packing.to_next(w, K, B, 0), B))
+    src_cand = gather_nodes(start_pos, lambda w: packing.node_key(w, B))
+    lanes = torch.where(ok[None, :], lanes2, packed.PAD_LANE)
+    count = torch.sum(ok, dtype=torch.int32)
+    if canonical:
+        comp2 = tuple(complement[c + 1] - 1 for c in range(4))
+        rc = packing.reverse_complement(lanes, K, 2, comp2)
+        take_rc = packed.lt(rc, lanes) & ok
+        lanes = torch.where(take_rc[None, :], rc, lanes)
+    ulanes2, ucounts, ucount = _sort_unique_ones_body(lanes, count)
+    ulanes = packed.expand2to4(ulanes2[low:], K)
+    # expansion garbles the PAD tail: restore it positionally
+    return _masked(ulanes, ucount), ucounts, ucount, (sink_cand, src_cand)
+
+
+def _sort_unique_ones_body(lanes: torch.Tensor, count: torch.Tensor):
+    """Sort-unique when every input k-mer has count 1: with unit counts
+    the exclusive running sum is the position, so per-group counts are
+    differences of the compacted group-first positions."""
+    cap = lanes.shape[1]
+    dev = lanes.device
+    lanes_s, _ = packed.sort(lanes)
+    first = packed.neighbor_ne(lanes_s)
+    umask = first & packed.valid_mask(cap, count)   # PADs sorted to the back
+    excl = torch.arange(cap, dtype=torch.int32, device=dev)
+    ulanes, ucount, (b,) = pmerge.partition_compact(lanes_s, umask, cap, excl)
+    total = count.reshape(1)
+    nxt = torch.cat([b[1:], total])
+    pos_ok = packed.valid_mask(cap, ucount)
+    nxt_ok = torch.cat([pos_ok[1:], torch.zeros((1,), dtype=torch.bool,
+                                                  device=dev)])
+    nxt = torch.where(nxt_ok, nxt, total)
+    ucounts = torch.where(pos_ok, nxt - b, 0).to(torch.int32)
+    return ulanes, ucounts, ucount
+
+
+def collect_kmers(seqs: Sequence[bytes | str], K: int,
+                  alphabet: Alphabet = DNA, canonical: bool = False,
+                  extra_codes=None, device="cuda"):
+    """Extract, sort, dedupe and count all k-mers of the input.
+
+    Returns (sorted unique lanes (L, max(n, 1)), counts, n, bounds), with
+    ``bounds`` the (sink, source) dummy-candidate node keys."""
+    dev = devmod.resolve(device)
+    if alphabet.bits_per_char != 4 or alphabet.size > 5:
+        raise NotImplementedError(
+            f"alphabet {alphabet.name} is not yet ported (DNA only)")
+    codes_np = (encode_sequences(seqs, alphabet) if extra_codes is None
+                else np.asarray(extra_codes, np.uint8))
+    if codes_np.shape[0] < K:
+        codes_np = np.concatenate(
+            [codes_np, np.full(K - codes_np.shape[0], INVALID_CODE,
+                               np.uint8)])
+    n = codes_np.shape[0]
+    inval = np.flatnonzero((codes_np - np.uint8(1)) > 3)  # 0 and >4 wrap
+    end_pos, start_pos = host_boundary_windows(inval, n, K)
+    codes = torch.from_numpy(codes_np).to(dev)
+    ulanes, ucounts, ucount, bounds = _collect_bounds(
+        codes, torch.from_numpy(end_pos).to(dev),
+        torch.from_numpy(start_pos).to(dev), K, alphabet.bits_per_char,
+        canonical, alphabet.complement)
+    n_u = int(ucount)                       # the collect's one host sync
+    cap = max(n_u, 1)
+    return ulanes[:, :cap], ucounts[:cap], n_u, bounds
+
+
+# ---------------------------------------------------------------------------
+# finish
+# ---------------------------------------------------------------------------
+
+def _add_rc_stage(lanes, counts, count, K: int, B: int, complement):
+    """Append the reverse complements of all (unique, canonical-form)
+    k-mers; palindromes double their count (saturated at emit)."""
+    cap = lanes.shape[1]
+    valid = packed.valid_mask(cap, count, lanes.device)
+    rc = packing.reverse_complement(lanes, K, B, complement)
+    pal = packed.eq(rc, lanes) & valid
+    counts = torch.where(pal, counts * 2, counts)
+    add_mask = valid & ~pal
+    n_add = torch.sum(add_mask, dtype=torch.int32)
+    rc_comp, _, (rc_counts,) = pmerge.partition_compact(
+        rc, add_mask, cap, counts)
+    # sort only the rc half, then one linear merge with the sorted half
+    rc_s, (rc_counts_s,) = packed.sort(rc_comp, rc_counts)
+    out_s, (counts_s,) = pmerge.merge_sorted(
+        _masked(lanes, count), rc_s, (torch.where(valid, counts, 0),),
+        (rc_counts_s,))
+    return out_s, counts_s, count + n_add
+
+
+def _rc_node(nk, K: int, B: int, complement):
+    """Reverse complement of a node key (S_{j+1} at field j): a fieldwise
+    reverse + complement."""
+    comp = torch.tensor(complement, dtype=packed.LANE_DTYPE, device=nk.device)
+    fields = packed.to_fields(nk, K - 1, B)
+    top = len(complement) - 1
+    rc = torch.stack([comp[torch.clamp(fields[K - 2 - j], max=top).long()]
+                      for j in range(K - 1)])
+    return packed.from_fields(rc, B, lanes=nk.shape[0])
+
+
+def _probe_dummies(real_m, sink_cand, src_cand, K: int, B: int, sigma: int):
+    """Dummy sink + dummy-1 source edges from the boundary candidates,
+    all probes in ONE batched binary search over the real edges.
+
+    Sinks: the outgoing edges of node T are the range [(T,0), (T,0xF)]
+    of BOSS order; T has none iff both bounds land together. Sources:
+    the incoming edges of node S are the <= sigma-1 k-mers
+    (c, S_1..S_{K-1}); S has none iff no probe hits."""
+    capk = sink_cand.shape[1]
+    capr = src_cand.shape[1]
+    dev = real_m.device
+    ks, _ = packed.sort(sink_cand)
+    first_k = packed.neighbor_ne(ks)
+    pad_k = packed.top_bit_set(ks[0])
+    lo_keys = packed.shift_left(ks, B)                # (T, $) sink edge
+    hi_keys = lo_keys.clone()
+    hi_keys[-1] |= (1 << B) - 1
+
+    rs, _ = packed.sort(src_cand)
+    first_r = packed.neighbor_ne(rs)
+    pad_r = packed.top_bit_set(rs[0])
+    # node-key layout: S_j at field j-1
+    top = packed.get_field(rs, K - 2, B)              # S_{K-1}
+    body = packed.set_field(rs, K - 2, torch.zeros_like(top), B)
+    # S_1..S_{K-2} up to fields 2..K-1; f0 = label S_{K-1}; f1 = $/probe
+    base = packed.set_field(packed.shift_left(body, 2 * B), 0, top, B)
+    probes = [packed.set_field(base, 1, torch.full_like(top, c), B)
+              for c in range(1, sigma)]
+
+    queries = torch.cat([lo_keys, hi_keys] + probes, dim=1)
+    pos = packed.searchsorted(real_m, queries, side="left")
+    lo, hi = pos[:capk], pos[capk:2 * capk]
+    keep_k = first_k & (hi == lo) & ~pad_k
+    sinks, n_sinks, _ = packed.compact(lo_keys, keep_k, capk)
+
+    n = real_m.shape[1]
+    present = torch.zeros((capr,), dtype=torch.bool, device=dev)
+    for ci in range(sigma - 1):
+        sl = pos[2 * capk + ci * capr:2 * capk + (ci + 1) * capr]
+        p = torch.clamp(sl, max=n - 1)
+        present = present | packed.eq(real_m[:, p], probes[ci])
+    keep_r = first_r & ~present & ~pad_r
+    src, n_src, _ = packed.compact(base, keep_r, capr)
+    src_s, _ = packed.sort(src)                       # PAD tail intact
+    return sinks, n_sinks, src_s, n_src
+
+
+def _levels_phase(src, n_src, K: int, B: int):
+    """Dummy-source levels 2..K-1: each level is the previous one's
+    distinct source nodes stepped back one char, written into its own
+    slot of one PAD-filled buffer."""
+    cap = src.shape[1]
+    L = src.shape[0]
+    n_levels = max(K - 2, 0)
+    out = packed.full_pad(max(n_levels, 1) * cap, L, src.device)
+    cur, n_cur = src, n_src
+    total = _i32(0, src.device)
+    for c in range(n_levels):
+        valid = packed.valid_mask(cap, n_cur, src.device)
+        node_first = packed.neighbor_ne(packing.node_key(cur, B)) & valid
+        nxt = packing.to_prev(cur, K, B, 0)
+        cand, n_cand, _ = packed.compact(nxt, node_first, cap)
+        cand_s, _ = packed.sort(cand)
+        out[:, c * cap:(c + 1) * cap] = cand_s
+        cur, n_cur = cand_s, n_cand
+        total = total + n_cand
+    return out, total
+
+
+def _merge_emit_body(real, counts, n_real, sinks, n_sinks, src, n_src,
+                     levels, n_levels_total, K: int, B: int,
+                     alph_size: int, max_count: int):
+    """Sort the (small) dummy side, merge it into the sorted real side in
+    one linear pass (merge kernel), then emit. Every dummy holds the
+    sentinel and no real edge does, so no key appears on both sides."""
+    L = real.shape[0]
+    dev = real.device
+    dummies = torch.cat([_masked(sinks, n_sinks), _masked(src, n_src),
+                         levels, packed.zeros(1, L, dev)], dim=1)
+    dummies_s, _ = packed.sort(dummies)
+    counts_m = torch.where(packed.valid_mask(real.shape[1], n_real, dev),
+                           counts, 0)
+    merged, (mcounts,) = pmerge.merge_sorted(
+        _masked(real, n_real), dummies_s, (counts_m,),
+        (torch.zeros((dummies_s.shape[1],), dtype=torch.int32, device=dev),))
+    n_total = n_real + n_sinks + n_src + n_levels_total + 1
+    mcounts = torch.where(packed.valid_mask(merged.shape[1], n_total, dev),
+                          mcounts, 0)
+    return _emit_body(merged, mcounts, n_total, K, B, alph_size, max_count)
+
+
+def _emit_body(kept, kcounts, n_kept, K: int, B: int, alph_size: int,
+               max_count: int):
+    """The initialize_chunk scan, vectorized: last bits from neighbor
+    node-key compares, minus flags from per-label first occurrences in
+    each target block. The dummy sinks are exact (probe-based), so no
+    redundant sink needs removing."""
+    cap = kept.shape[1]
+    dev = kept.device
+    no = torch.zeros((1,), dtype=torch.bool, device=dev)
+    kvalid = packed.valid_mask(cap, n_kept, dev)
+    knodes = packing.node_key(kept, B)
+    ksame_next = torch.cat([packed.eq(knodes[:, :-1], knodes[:, 1:]), no])
+    next_valid = torch.cat([kvalid[1:], no])
+    last = kvalid & ~(ksame_next & next_valid)
+
+    klabels = packing.label(kept, B)
+    ktopc = packing.top_char(kept, K, B)
+    # minus flag: not the first (target node, label) in BOSS order. Edges
+    # sharing a target key sit in one block of equal u_2..u_{K-1}; per
+    # label c, "first c in my block" is a global cumsum of the label mask
+    # minus its value at the block start (forward-filled by a cummax).
+    block_first = packed.neighbor_ne(packed.shift_right(kept, 2 * B))
+    minus = torch.zeros((cap,), dtype=torch.bool, device=dev)
+    for c in range(1, alph_size):
+        mask_c = (klabels == c) & kvalid
+        mi = mask_c.to(torch.int32)
+        cnt = packed.blocked_cumsum(mi)
+        start_excl = packed.blocked_cummax(
+            torch.where(block_first, cnt - mi, 0))
+        minus = minus | (mask_c & ((cnt - start_excl) > 1))
+    minus = minus & (klabels != 0) & kvalid
+
+    W = torch.where(minus, klabels + alph_size, klabels)
+    W = torch.where(kvalid, W, 0).to(torch.int32)
+    # the top char is nondecreasing over the valid prefix: F is one
+    # batched binary search
+    tc = torch.where(kvalid, ktopc, alph_size).to(torch.int32)
+    F = torch.searchsorted(tc, torch.arange(alph_size, dtype=torch.int32,
+                                            device=dev),
+                           side="left").to(torch.int32)
+    kfirst = packing.first_char(kept, B)
+    weights = torch.where(
+        (kcounts > 0) & (klabels != 0) & (kfirst != 0),
+        torch.clamp(kcounts, max=max_count), 0).to(torch.int32)
+    return kept, n_kept, W, last, F, weights
+
+
+def _finish_stage_bounds(real, counts, n_real, sink_cand, src_cand,
+                         K: int, B: int, alph_size: int, max_count: int,
+                         canonical: bool, complement):
+    """Everything after collection: rc closure (canonical), dummy probes,
+    levels, merge, emit and the search table."""
+    if canonical:
+        real, counts, n_real = _add_rc_stage(real, counts, n_real, K, B,
+                                             complement)
+    real_m = _masked(real, n_real)
+    if canonical:
+        def rc_masked(x):
+            pad = packed.top_bit_set(x[0])
+            return torch.where(pad[None, :], packed.PAD_LANE,
+                               _rc_node(x, K, B, complement))
+        tgt_c, src_c = sink_cand, src_cand
+        sink_cand = torch.cat([tgt_c, rc_masked(src_c)], dim=1)
+        src_cand = torch.cat([src_c, rc_masked(tgt_c)], dim=1)
+    sinks, n_sinks, src, n_src = _probe_dummies(
+        real_m, sink_cand, src_cand, K, B, alph_size)
+    levels, n_levels_total = _levels_phase(src, n_src, K, B)
+    kept, n_kept, W, last, F, weights = _merge_emit_body(
+        real, counts, n_real, sinks, n_sinks, src, n_src, levels,
+        n_levels_total, K, B, alph_size, max_count)
+    lut, max_bucket = _build_lut(kept, n_kept)     # the search table
+    dev = kept.device
+    stats = torch.stack([_i32(x, dev) for x in (
+        n_kept, n_sinks, n_src, n_levels_total, n_real, max_bucket)])
+    return kept, W, last, F, weights, lut, stats
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def _check_mode(mode: str, alphabet: Alphabet):
+    if mode not in _PORTED_MODES:
+        raise NotImplementedError(f"mode {mode!r} is not yet ported")
+    if mode == MODE_CANONICAL and not alphabet.complement:
+        raise ValueError(f"canonical mode needs a complemented alphabet; "
+                         f"{alphabet.name} has no complement table")
+
+
+def build_boss_from_kmers(real, counts, n_real: int, K: int,
+                          alphabet: Alphabet = DNA, mode: str = MODE_BASIC,
+                          bits_per_count: int = 0,
+                          bounds=None) -> Boss:
+    """Generate the dummy edges, merge, and emit the BOSS arrays from
+    ``collect_kmers`` output (its ``bounds`` are required: the finish
+    from pre-counted k-mers is not yet ported)."""
+    _check_mode(mode, alphabet)
+    if bounds is None:
+        raise NotImplementedError(
+            "the finish without boundary candidates (KMC input) is not "
+            "yet ported")
+    B = alphabet.bits_per_char
+    max_count = (1 << bits_per_count) - 1 if bits_per_count else (1 << 31) - 1
+    sink_cand, src_cand = bounds
+    kept, W, last, F, weights, lut, stats = _finish_stage_bounds(
+        real, counts, _i32(n_real, real.device), sink_cand, src_cand, K, B,
+        alphabet.size, max_count, mode == MODE_CANONICAL,
+        alphabet.complement)
+    stats = stats.cpu().numpy()              # the finish's one host sync
+    return Boss.from_finish(
+        k=K - 1, alph_size=alphabet.size, bits_per_char=B,
+        kept=kept, W=W, last=last, F=F, n_kept=int(stats[0]),
+        weights=weights if bits_per_count else None, lut=lut,
+        max_bucket=int(stats[5]))
+
+
+def build_boss_from_codes(codes_np: np.ndarray, k: int,
+                          alphabet: Alphabet = DNA, mode: str = MODE_BASIC,
+                          bits_per_count: int = 0, device="cuda") -> Boss:
+    """Build from a pre-encoded code array (INVALID between records)."""
+    _check_mode(mode, alphabet)
+    ulanes, ucounts, n_u, bounds = collect_kmers(
+        [], k, alphabet, canonical=mode == MODE_CANONICAL,
+        extra_codes=codes_np, device=device)
+    return build_boss_from_kmers(ulanes, ucounts, n_u, k, alphabet, mode=mode,
+                                 bits_per_count=bits_per_count, bounds=bounds)
+
+
+def build_boss(seqs: Sequence[bytes | str], k: int,
+               alphabet: Alphabet = DNA, mode: str = MODE_BASIC,
+               bits_per_count: int = 0, suffix: Tuple[int, ...] = (),
+               device="cuda") -> Boss:
+    """End-to-end single-shard BOSS build for DBG k-mer size ``k`` (edge
+    k-mers of k characters; BOSS node length k-1)."""
+    if suffix:
+        raise NotImplementedError("suffix-sharded builds are not yet ported")
+    _check_mode(mode, alphabet)
+    ulanes, ucounts, n_u, bounds = collect_kmers(
+        seqs, k, alphabet, canonical=mode == MODE_CANONICAL, device=device)
+    return build_boss_from_kmers(ulanes, ucounts, n_u, k, alphabet, mode=mode,
+                                 bits_per_count=bits_per_count, bounds=bounds)

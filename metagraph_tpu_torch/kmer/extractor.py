@@ -1,0 +1,41 @@
+"""Sequence -> code arrays and k-window validity.
+
+PyTorch counterpart of ``metagraph_tpu/kmer/extractor.py``. Sequences
+are concatenated with a single INVALID separator byte, so no window
+straddles two sequences; a window is a real k-mer iff it holds no
+invalid or sentinel code, which one prefix sum decides for all windows.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .alphabets import Alphabet, INVALID_CODE
+
+
+def encode_sequences(seqs: Sequence[bytes | str],
+                     alphabet: Alphabet) -> np.ndarray:
+    """Host-side: concatenate sequences into one uint8 code array with
+    INVALID separators between (and after) each sequence."""
+    tbl = alphabet.encode_table()
+    parts = []
+    for s in seqs:
+        if isinstance(s, str):
+            s = s.encode()
+        parts.append(tbl[np.frombuffer(s, np.uint8)])
+        parts.append(np.array([INVALID_CODE], np.uint8))
+    if not parts:
+        return np.zeros((0,), np.uint8)
+    return np.concatenate(parts)
+
+
+def window_validity(codes: torch.Tensor, K: int) -> torch.Tensor:
+    """(N-K+1,) bool: window i..i+K-1 holds only real character codes."""
+    bad = (codes == int(INVALID_CODE)) | (codes == 0)
+    prefix = torch.cat([torch.zeros((1,), dtype=torch.int32,
+                                    device=codes.device),
+                        torch.cumsum(bad, 0, dtype=torch.int32)])
+    return (prefix[K:] - prefix[:-K]) == 0

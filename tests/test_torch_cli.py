@@ -1,0 +1,131 @@
+"""The port's CLI against the JAX package's CLI, in process.
+
+build, annotate, query and stats must print byte-identical stdout (the
+port with ``--device cpu``), and a ``.dbg.npz`` written by either
+package must load in the other.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import random_dna
+from metagraph_tpu.cli.main import main as jmain
+from metagraph_tpu_torch.cli.main import main as tmain
+
+torch.set_num_threads(2)
+
+
+def run(capsys, main, argv):
+    capsys.readouterr()
+    main(argv)
+    return capsys.readouterr().out
+
+
+def tport(capsys, argv):
+    return run(capsys, tmain, argv + ["--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def fasta(tmp_path_factory):
+    rng = np.random.default_rng(21)
+    tmp = tmp_path_factory.mktemp("cli")
+    recs = [random_dna(rng, int(rng.integers(20, 240))) for _ in range(16)]
+    recs.append(b"ACGTNACGTACGTTTGCANNACGT")
+    with open(tmp / "in.fa", "wb") as f:
+        for i, s in enumerate(recs):
+            f.write(b">rec%d some comment\n%s\n" % (i, s))
+    with open(tmp / "q.fa", "wb") as f:
+        for i, s in enumerate(recs):
+            f.write(b">q%d\n%s\n" % (i, s[5:5 + int(rng.integers(8, 80))]))
+        f.write(b">random\n" + random_dna(rng, 70) + b"\n>short\nACG\n")
+    with open(tmp / "reads.fq", "wb") as f:
+        for i, s in enumerate(recs[:6]):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, s, b"I" * len(s)))
+    return tmp
+
+
+BUILDS = [("basic", []), ("canonical", []), ("basic", ["--count-kmers"]),
+          ("canonical", ["--count-kmers", "--count-width", "4"])]
+
+
+@pytest.mark.parametrize("mode,extra", BUILDS)
+def test_build_stats_identical(fasta, capsys, mode, extra):
+    for k, inp in (("13", "in.fa"), ("31", "reads.fq")):
+        j, t = str(fasta / f"j{mode}{k}"), str(fasta / f"t{mode}{k}")
+        args = ["build", "-k", k, "--mode", mode] + extra
+        run(capsys, jmain, args + ["-o", j, str(fasta / inp)])
+        tport(capsys, args + ["-o", t, str(fasta / inp)])
+        want = run(capsys, jmain, ["stats", j])
+        assert want.startswith("====")
+        assert tport(capsys, ["stats", t]) == want
+        # the .dbg.npz files cross-load both ways
+        assert run(capsys, jmain, ["stats", t]) == want
+        assert tport(capsys, ["stats", j]) == want
+
+
+QUERIES = [
+    [],
+    ["--discovery-fraction", "0.0"],
+    ["--count-labels", "--discovery-fraction", "0.2"],
+    ["--count-labels", "--num-top-labels", "2", "--discovery-fraction", "0"],
+    ["--labels-delimiter", ",", "--discovery-fraction", "0.1",
+     "--suppress-unlabeled"],
+]
+
+
+@pytest.mark.parametrize("mode", ["basic", "canonical"])
+def test_annotate_query_identical(fasta, capsys, mode):
+    j, t = str(fasta / f"aj{mode}"), str(fasta / f"at{mode}")
+    inp = str(fasta / "in.fa")
+    run(capsys, jmain, ["build", "-k", "15", "--mode", mode, "-o", j, inp])
+    tport(capsys, ["build", "-k", "15", "--mode", mode, "-o", t, inp])
+    anno = ["--anno-header", "--anno-label", "all", "--anno-filename"]
+    run(capsys, jmain, ["annotate", "-i", j] + anno + [inp])
+    tport(capsys, ["annotate", "-i", t] + anno + [inp])
+    ja, ta = j + ".column.annodbg.npz", t + ".column.annodbg.npz"
+    assert tport(capsys, ["stats", ta]) == run(capsys, jmain, ["stats", ja])
+    for q in QUERIES:
+        argv = ["query"] + q + [str(fasta / "q.fa")]
+        want = run(capsys, jmain, argv[:1] + ["-i", j, "-a", ja] + argv[1:])
+        assert want
+        assert tport(capsys, argv[:1] + ["-i", t, "-a", ta] + argv[1:]) \
+            == want
+        # and the port queries the JAX package's files the same way
+        assert tport(capsys, argv[:1] + ["-i", j, "-a", ja] + argv[1:]) \
+            == want
+
+
+def test_annotate_counts_identical(fasta, capsys):
+    j, t = str(fasta / "cj"), str(fasta / "ct")
+    inp = str(fasta / "in.fa")
+    run(capsys, jmain, ["build", "-k", "11", "-o", j, inp])
+    tport(capsys, ["build", "-k", "11", "-o", t, inp])
+    run(capsys, jmain, ["annotate", "-i", j, "--anno-header",
+                        "--count-kmers", inp])
+    tport(capsys, ["annotate", "-i", t, "--anno-header", "--count-kmers",
+                   inp])
+    jz = np.load(j + ".column.annodbg.npz")
+    tz = np.load(t + ".column.annodbg.npz")
+    for key in ("rows", "cols", "values", "shape", "labels"):
+        np.testing.assert_array_equal(tz[key], jz[key])
+
+
+@pytest.mark.parametrize("argv", [
+    ["assemble", "-i", "g"],
+    ["build", "-k", "11", "--mode", "primary", "x.fa"],
+    ["build", "-k", "11", "--suffix-len", "2", "x.fa"],
+    ["query", "-i", "g", "-a", "a", "--query-coords", "q.fa"],
+])
+def test_unported_exits_nonzero(argv, capsys):
+    with pytest.raises(SystemExit) as e:
+        tmain(argv)
+    assert e.value.code not in (0, None)
+    assert "not yet ported" in str(e.value.code)
+
+
+def test_device_cuda_without_gpu_raises(fasta, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmain(["build", "-k", "11", "-o", str(fasta / "nogpu"),
+               str(fasta / "in.fa"), "--device", "cuda"])

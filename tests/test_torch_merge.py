@@ -1,0 +1,179 @@
+"""Parity of the port's partition_compact and merge_sorted with the JAX
+package, on the CPU (where the port's wrappers run the plain versions).
+
+References: the JAX Pallas kernels run as ``tests/test_merge.py`` runs
+them (``interpret=True, force_pallas=True, chunk=1024``) and the JAX
+fallbacks (``packed.compact``, ``_merge_fallback``). Keys must match
+exactly; payloads exactly against the stable fallback, and as multisets
+within equal-key runs against the unstable interpret-mode merge.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from metagraph_tpu.common import merge as jmerge
+from metagraph_tpu.common import packed as jpk
+from metagraph_tpu_torch.common import device as tdevice
+from metagraph_tpu_torch.common import merge as tmerge
+from metagraph_tpu_torch.common import packed as tpk
+
+torch.set_num_threads(2)
+
+
+def T(a):
+    return tpk.lanes_from_numpy(np.asarray(a), "cpu")
+
+
+def _sorted_lanes(rng, n_valid, cap, L, hi=1 << 63):
+    if L == 1:
+        hi = min(hi, 1 << 31)
+    v = rng.integers(0, hi, n_valid, dtype=np.uint64)
+    v = ((v >> np.uint64(33)) << np.uint64(32)) | (v & np.uint64(0xFFFFFFFF))
+    v.sort()
+    lanes = np.full((L, cap), 0xFFFFFFFF, np.uint32)
+    if n_valid:
+        lanes[:, :n_valid] = 0
+        lanes[L - 1, :n_valid] = (v & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        if L > 1:
+            lanes[L - 2, :n_valid] = (v >> np.uint64(32)).astype(np.uint32)
+    return lanes
+
+
+PART_CASES = [
+    (1024, 1024, 0.5, 2),
+    (4096, 4096, 0.3, 2),
+    (3000, 3000, 0.5, 2),       # not a chunk multiple
+    (2048, 512, 0.7, 2),        # capacity < count: truncation + true count
+    (1500, 8192, 0.4, 3),       # capacity > n: PAD / fill tail
+    (2048, 2048, 1.0, 2),
+    (2048, 2048, 0.0, 2),
+    (1024, 1024, 0.01, 1),
+]
+
+
+@pytest.mark.parametrize("n,capacity,frac,L", PART_CASES)
+def test_partition_matches_jax(n, capacity, frac, L):
+    rng = np.random.default_rng(n * 7 + capacity + L)
+    lanes = rng.integers(0, 1 << 32, (L, n), dtype=np.uint64).astype(
+        np.uint32)
+    lanes[:, ::97] = 0xFFFFFFFF
+    keep = rng.random(n) < frac
+    p_i32 = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    p_u32 = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    got, gcount, (gi, gu) = tmerge.partition_compact(
+        T(lanes), torch.from_numpy(keep), capacity, torch.from_numpy(p_i32),
+        T(p_u32), extra_fill=7)
+    for ref in (
+            jmerge.partition_compact(
+                jnp.asarray(lanes), jnp.asarray(keep), capacity,
+                jnp.asarray(p_i32), jnp.asarray(p_u32), extra_fill=7,
+                chunk=1024, interpret=True, force_pallas=True),
+            jpk.compact(jnp.asarray(lanes), jnp.asarray(keep), capacity,
+                        jnp.asarray(p_i32), jnp.asarray(p_u32),
+                        extra_fill=7)):
+        want, wcount, (wi, wu) = ref
+        assert int(gcount) == int(wcount)
+        np.testing.assert_array_equal(tpk.lanes_to_numpy(got),
+                                      np.asarray(want))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+        np.testing.assert_array_equal(tpk.lanes_to_numpy(gu),
+                                      np.asarray(wu).astype(np.uint32))
+
+
+def test_partition_stable():
+    n = 2048
+    rng = np.random.default_rng(13)
+    lanes = rng.integers(0, 17, (2, n)).astype(np.uint32)
+    keep = rng.random(n) < 0.6
+    _, count, (idx,) = tmerge.partition_compact(
+        T(lanes), torch.from_numpy(keep), n,
+        torch.arange(n, dtype=torch.int32))
+    np.testing.assert_array_equal(idx.numpy()[:int(count)],
+                                  np.flatnonzero(keep))
+
+
+MERGE_CASES = [
+    (100, 200, 8192, 8192, 2),
+    (8192, 8192, 8192, 8192, 2),
+    (5000, 9000, 8192, 16384, 3),
+    (0, 50, 8192, 8192, 2),
+    (300, 0, 1024, 512, 1),
+    (7000, 7000, 8192, 8192, 2),
+    (9000, 40, 9000, 1024, 4),     # |B| << |A|, as the dummy merge
+]
+
+
+def _check_merge(a, b, pa, pb, L):
+    got, (gp,) = tmerge.merge_sorted(T(a), T(b), (torch.from_numpy(pa),),
+                                     (torch.from_numpy(pb),))
+    gk, gp = tpk.lanes_to_numpy(got), gp.numpy()
+    # the stable fallback: keys and payloads exact
+    want, (wp,) = jmerge._merge_fallback(
+        jnp.asarray(a), jnp.asarray(b), (jnp.asarray(pa),),
+        (jnp.asarray(pb),))
+    np.testing.assert_array_equal(gk, np.asarray(want))
+    np.testing.assert_array_equal(gp, np.asarray(wp))
+    # the (unstable) Pallas kernel in interpret mode: keys exact, payloads
+    # as multisets within equal-key runs
+    want, (wp,) = jmerge.merge_sorted(
+        jnp.asarray(a), jnp.asarray(b), (jnp.asarray(pa),),
+        (jnp.asarray(pb),), chunk=1024, interpret=True, force_pallas=True)
+    wk, wp = np.asarray(want), np.asarray(wp)
+    np.testing.assert_array_equal(gk, wk)
+    nv = int(np.sum(~np.all(gk == 0xFFFFFFFF, axis=0)))
+    gz = np.lexsort([gp[:nv]] + [gk[j][:nv] for j in range(L)])
+    wz = np.lexsort([wp[:nv]] + [wk[j][:nv] for j in range(L)])
+    np.testing.assert_array_equal(gp[:nv][gz], wp[:nv][wz])
+
+
+@pytest.mark.parametrize("na,nb,ca,cb,L", MERGE_CASES)
+def test_merge_matches_jax(na, nb, ca, cb, L):
+    rng = np.random.default_rng(na * 31 + nb)
+    a, b = _sorted_lanes(rng, na, ca, L), _sorted_lanes(rng, nb, cb, L)
+    pa = rng.integers(0, 1 << 30, ca).astype(np.int32)
+    pb = rng.integers(0, 1 << 30, cb).astype(np.int32)
+    _check_merge(a, b, pa, pb, L)
+
+
+def test_merge_duplicate_heavy():
+    rng = np.random.default_rng(7)
+    a = np.full((2, 8192), 0xFFFFFFFF, np.uint32)
+    b = np.full((2, 8192), 0xFFFFFFFF, np.uint32)
+    a[0, :4096], b[0, :4096] = 0, 0
+    a[1, :4096] = np.sort(rng.integers(0, 37, 4096))
+    b[1, :4096] = np.sort(rng.integers(0, 37, 4096))
+    _check_merge(a, b, np.arange(8192, dtype=np.int32),
+                 np.arange(8192, 16384, dtype=np.int32), 2)
+
+
+def test_merge_zero_width_sides():
+    rng = np.random.default_rng(2)
+    a = _sorted_lanes(rng, 100, 1024, 2)
+    empty = np.full((2, 0), 0xFFFFFFFF, np.uint32)
+    for x, y in ((a, empty), (empty, a)):
+        got, _ = tmerge.merge_sorted(T(x), T(y))
+        np.testing.assert_array_equal(tpk.lanes_to_numpy(got), a)
+
+
+def test_wrappers_dispatch_on_device_only():
+    x = tpk.full_pad(4, 2, "meta")
+    keep = torch.ones(4, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        tmerge.partition_compact(x, keep, 4)
+    with pytest.raises(ValueError):
+        tmerge.merge_sorted(x, x)
+    # a CPU tensor takes the plain version and launches nothing
+    p0, m0 = tmerge.partition_launches, tmerge.merge_launches
+    tmerge.partition_compact(tpk.full_pad(4, 2, "cpu"),
+                             torch.ones(4, dtype=torch.bool), 4)
+    tmerge.merge_sorted(tpk.full_pad(4, 2, "cpu"), tpk.full_pad(4, 2, "cpu"))
+    assert (tmerge.partition_launches, tmerge.merge_launches) == (p0, m0)
+
+
+def test_cuda_device_without_gpu_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdevice.resolve("cuda")
+    assert tdevice.resolve("cpu") == torch.device("cpu")
