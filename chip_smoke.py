@@ -8,17 +8,28 @@ Phases (each raises on failure; the process exits non-zero):
      limit.
   1. builds the CUDA kernels of metagraph_tpu_torch/csrc from source.
   2. checks each kernel against its plain PyTorch version on the card,
-     bit for bit, at the main path's shapes (2^25 entries) and at edge
-     cases; prints both median times.
-  3. the main path: build_boss_from_codes on 2^25 random ACGT codes,
-     k = 31 canonical and k = 20 basic; then annotates the k = 20 input
-     split into 1000 labelled records and queries 2^15 reads of 100 bp.
-     The kernels' launch counters are zeroed just before and read just
-     after. Checks: real-edge counts against numpy, sorted edges, both
-     kernels launched, every sampled read carries its record's label,
-     CUDA label counts equal CPU counts on 512 reads, and at 2^16 codes
-     the CUDA build equals the CPU build array for array.
-  4. the CLI: build, annotate, query and stats with --device cuda.
+     bit for bit, at the main path's shapes (2^25 entries for the build
+     kernels; 2^14 pairs of 112 x 128 for the alignment DP) and at edge
+     cases; prints the median times of the kernel, of its plain version
+     and (where one exists) of one PyTorch library call, and its bound.
+  3. the main paths, each with every kernel's launch counter zeroed just
+     before and read just after it:
+     a. build: build_boss_from_codes on 2^25 random ACGT codes, k = 31
+        canonical and k = 20 basic; then annotates the k = 20 input split
+        into 1000 labelled records and queries 2^15 reads of 100 bp.
+        Checks: real-edge counts against numpy, sorted edges, both build
+        kernels launched, every sampled read carries its record's label,
+        CUDA label counts equal CPU counts on 512 reads, and at 2^16 codes
+        the CUDA build equals the CPU build array for array.
+     b. align: Aligner.align_batch on the k = 20 graph, 2^13 reads of
+        100 bp (3/4 one transversion, 1/8 an indel, 1/8 random), with
+        CIGARs and score-only. Checks: >= 99 % of the substitution reads
+        score 195 with one X and spell their source window, >= 99 % of
+        the indel reads align, score-only agrees with the CIGAR run, the
+        DP kernel launched; at 2^20 codes, 512 reads align identically on
+        CUDA and on the CPU.
+  4. the CLI: build, annotate, query, query --align, align (TSV and
+     --json) and stats with --device cuda.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -71,6 +82,20 @@ def max_abs_err(got, want):
     return err
 
 
+# H100 SXM peaks (NVIDIA data sheet / Hopper white paper) at a 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+# 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def bound(nbytes, ops=0):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    int32 operations over the ALU rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -105,11 +130,17 @@ def check_partition(gen, dev, n, L, capacity, frac, E=1, time_it=False):
         raise AssertionError(f"partition_compact n={n} L={L} cap={capacity}"
                              f": kernel differs from plain (err {err})")
     if not time_it:
-        return err, None, None
+        return err
     ms = cuda_ms(lambda: merge.partition_compact(x, keep, capacity, *extras))
     plain = cuda_ms(lambda: merge.partition_compact_plain(
         x, keep, capacity, *extras))
-    return err, ms, plain
+    # library yardstick: a boolean-mask gather of the stacked lanes and
+    # payloads (compacts, but writes no PAD / extra_fill tail)
+    stacked = torch.cat([x] + [e[None] for e in extras])
+    lib_ms = cuda_ms(lambda: stacked[:, keep])
+    # lanes + payloads + keep read once; lanes + payloads + count written
+    nbytes = (4 * (L + E) + 1) * n + 4 * (L + E) * capacity + 4
+    return err, ms, plain, lib_ms, bound(nbytes)
 
 
 def check_merge(gen, dev, na, nb, L, time_it=False, a=None, b=None):
@@ -129,10 +160,12 @@ def check_merge(gen, dev, na, nb, L, time_it=False, a=None, b=None):
                              f"nb={b.shape[1]} L={L}: kernel differs from "
                              f"plain (err {err})")
     if not time_it:
-        return err, None, None
+        return err
     ms = cuda_ms(lambda: merge.merge_sorted(a, b, ea, eb))
     plain = cuda_ms(lambda: merge.merge_sorted_plain(a, b, ea, eb))
-    return err, ms, plain
+    # keys + payload of A and B read once, the merged ones written once
+    ntot = a.shape[1] + b.shape[1]
+    return err, ms, plain, None, bound(2 * 4 * (L + 1) * ntot)
 
 
 def phase_kernels(dev):
@@ -144,21 +177,24 @@ def phase_kernels(dev):
     summary = {}
     # main-path shapes: 2^25 windows, one int32 payload, half kept
     for L in (2, 3, 4):
-        err, ms, plain = check_partition(gen, dev, n, L, n, 0.5,
-                                         time_it=True)
+        res = check_partition(gen, dev, n, L, n, 0.5, time_it=True)
+        err, ms, plain, lib_ms, (bms, _) = res
         log(f"partition_compact L={L} N=2^25 keep=0.5: bit-exact, kernel "
-            f"{ms:.3f} ms, plain {plain:.3f} ms (median of 5)")
+            f"{ms:.3f} ms, plain {plain:.3f} ms, library x[:, keep] "
+            f"{lib_ms:.3f} ms, bound {bms:.3f} ms (median of 5)")
         if L == 2:
-            summary["partition_compact"] = (err, ms, plain)
+            summary["partition_compact"] = res
     # merges: the dummy merge (|B| << |A|; k=20 basic has L=3, k=31
     # canonical L=4 over twice the edges) and the rc merge (|A| = |B|)
     for na, nb, L, what in ((n, 1 << 12, 3, "dummy merge, k=20 basic"),
                             (2 * n, 1 << 12, 4, "dummy merge, k=31 canon."),
                             (n, n, 4, "rc merge, k=31 canonical")):
-        err, ms, plain = check_merge(gen, dev, na, nb, L, time_it=True)
+        res = check_merge(gen, dev, na, nb, L, time_it=True)
+        err, ms, plain, _, (bms, _) = res
         log(f"merge_sorted L={L} |A|={na} |B|={nb} ({what}): bit-exact, "
-            f"kernel {ms:.3f} ms, plain {plain:.3f} ms (median of 5)")
-        summary.setdefault("merge_sorted", (err, ms, plain))
+            f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {bms:.3f} ms "
+            f"(median of 5)")
+        summary.setdefault("merge_sorted", res)
     # edge cases, all bit-exact
     for args in ((n + 13, 3, n + 13, 0.5),       # N off the block size
                  (100003, 2, 1000, 0.7),          # capacity < count
@@ -182,7 +218,83 @@ def phase_kernels(dev):
     check_merge(gen, dev, 0, 0, 2, a=dup_a, b=dup_b)             # duplicates
     log("edge cases (N off the block, capacity < count and > N, zero-width "
         "sides, all-PAD, heavy duplicates): bit-exact")
+    summary["pallas_dp"] = phase_align_dp(dev)
     return summary
+
+
+def dp_pairs(rng, R, LQ, LR, dev, copy_frac=0.25):
+    """R random (query, ref) pairs, lengths uniform in [0, LQ] / [0, LR],
+    a ``copy_frac`` share of the refs copied from their queries (with one
+    substitution) so that the scores vary."""
+    import torch
+    q = rng.integers(1, 5, (R, LQ)).astype(np.int32)
+    r = rng.integers(1, 5, (R, LR)).astype(np.int32)
+    n = min(LQ, LR)
+    cp = rng.random(R) < copy_frac
+    r[cp, :n] = q[cp, :n]
+    r[cp, rng.integers(0, LR)] = 2
+    ql = rng.integers(0, LQ + 1, R).astype(np.int32)
+    rl = rng.integers(0, LR + 1, R).astype(np.int32)
+    return [torch.from_numpy(x).to(dev) for x in (q, r, ql, rl)]
+
+
+def check_dp(args, what, sub_tt=None, time_it=False, **pen):
+    import torch
+    from metagraph_tpu_torch.align import pallas_dp
+    pen = dict(dict(match=2, tpen=3, tvpen=3, open_p=5, ext_p=2), **pen)
+    got = pallas_dp.batch_align_ends(*args, sub_tt=sub_tt, **pen)
+    scores = pallas_dp.batch_align_scores(*args, sub_tt=sub_tt, **pen)
+    table = pallas_dp.score_table(pen["match"], pen["tpen"], pen["tvpen"],
+                                  sub_tt, args[0].device)
+    want = pallas_dp.align_plain(*args, table, pen["open_p"], pen["ext_p"],
+                                 True)
+    torch.cuda.synchronize()
+    err = max_abs_err([got, scores], [want, want[:, 0]])
+    if err:
+        raise AssertionError(f"batch_align {what}: kernel differs from plain "
+                             f"(err {err})")
+    if not time_it:
+        return err
+    ms = cuda_ms(lambda: pallas_dp.batch_align_ends(*args, **pen))
+    plain = cuda_ms(lambda: pallas_dp.align_plain(
+        *args, table, pen["open_p"], pen["ext_p"], True))
+    q, r = args[0], args[1]
+    cells = pallas_dp.dp_cells(args[2], args[3], q.shape[1], r.shape[1])
+    nbytes = 4 * q.shape[0] * (q.shape[1] + r.shape[1] + 2 + 3)
+    return err, ms, plain, None, bound(nbytes, cells * pallas_dp.OPS_PER_CELL)
+
+
+def phase_align_dp(dev):
+    """pallas_dp against its plain version: the main path's shape and the
+    edge cases, bit-exact for the ends and the scores."""
+    rng = np.random.default_rng(SEED + 3)
+    R, LQ, LR = 1 << 14, 112, 128
+    res = check_dp(dp_pairs(rng, R, LQ, LR, dev), "main shape", time_it=True)
+    err, ms, plain, _, (bms, _) = res
+    log(f"pallas_dp ends R=2^14 LQ={LQ} LR={LR}: bit-exact (ends and "
+        f"scores), kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+        f"{bms:.4f} ms (median of 5)")
+    for R in (1, 7, 33):
+        check_dp(dp_pairs(rng, R, 40, 50, dev), f"R={R}")
+    q, r, ql, rl = dp_pairs(rng, 40, 30, 30, dev)
+    ql[:5], rl[5:10] = 0, 0                       # qlen 0, rlen 0
+    r[10:20], ql[10:20], rl[10:20] = q[10:20], 30, 30   # identical: ties
+    q[20:25], r[20:25] = 0, 0                     # all-0 codes
+    check_dp([q, r, ql, rl], "edge rows")
+    check_dp(dp_pairs(rng, 50, 1, 60, dev), "LQ=1")
+    check_dp(dp_pairs(rng, 64, 3000, 3000, dev, copy_frac=0.5),
+             "R=64 LQ=LR=3000 (scratch columns)")
+    unit = np.full((5, 5), -1, np.int32)
+    np.fill_diagonal(unit, 1)
+    unit[0, 0] = -1
+    check_dp(dp_pairs(rng, 500, 60, 70, dev), "unit table", sub_tt=unit,
+             match=1, tpen=1, tvpen=1, open_p=1, ext_p=1)
+    check_dp(dp_pairs(rng, 300, 50, 50, dev), "open < ext", open_p=1,
+             ext_p=4)
+    log("pallas_dp edge cases (R 1/7/33, qlen 0, rlen 0, identical pairs, "
+        "all-0 codes, LQ=1, LQ=LR=3000 in scratch, unit table, open < ext):"
+        " bit-exact")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -244,17 +356,31 @@ def split_records(codes, n_rec):
             for i in range(n_rec)]
 
 
+def zero_launches():
+    from metagraph_tpu_torch.align import pallas_dp
+    from metagraph_tpu_torch.common import merge
+    merge.partition_launches = 0
+    merge.merge_launches = 0
+    pallas_dp.dp_launches = 0
+
+
+def read_launches():
+    from metagraph_tpu_torch.align import pallas_dp
+    from metagraph_tpu_torch.common import merge
+    return {"partition_compact": merge.partition_launches,
+            "merge_sorted": merge.merge_launches,
+            "pallas_dp": pallas_dp.dp_launches}
+
+
 def phase_main_path(dev):
     import torch
-    from metagraph_tpu_torch.common import merge
     from metagraph_tpu_torch.engine.annotated_dbg import (
         AnnotatedDbg, BatchQuery, annotate_sequences)
     from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
     rng = np.random.default_rng(SEED)
     codes = rng.integers(1, 5, N_CODES).astype(np.uint8)   # bench_capacity
 
-    merge.partition_launches = 0
-    merge.merge_launches = 0
+    zero_launches()
     results = {}
     for K, mode in ((31, "canonical"), (20, "basic")):
         boss, cold = timed_build(codes, K, mode, dev)
@@ -299,12 +425,11 @@ def phase_main_path(dev):
     t0 = time.time()
     got = bq.get_labels_batch(reads, 0.7)
     dt = time.time() - t0
-    launches = {"partition_compact": merge.partition_launches,
-                "merge_sorted": merge.merge_launches}
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            raise AssertionError(f"{name} was not launched by the main path")
-    log(f"launch counts over the main path: {launches}")
+    launches = read_launches()
+    for name in ("partition_compact", "merge_sorted"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by the build path")
+    log(f"launch counts over the build path: {launches}")
     bad = [i for i, r in enumerate(which) if labels[r] not in got[i]]
     if bad:
         raise AssertionError(f"{len(bad)} sampled reads miss their label, "
@@ -330,7 +455,10 @@ def phase_main_path(dev):
             and np.array_equal(cp, hp)):
         raise AssertionError("CUDA label counts differ from CPU counts")
     log("query: CUDA label counts equal CPU counts on 512 reads")
-    del graph, boss, ann, bq, cpu
+    del cpu
+    torch.cuda.empty_cache()
+    align_launches = phase_align(graph, bq, codes, rng)
+    del graph, boss, ann, bq
     torch.cuda.empty_cache()
 
     # the whole build, CUDA against CPU, array for array
@@ -351,7 +479,154 @@ def phase_main_path(dev):
                                      f"differs from CPU")
     log("build at 2^16 codes: CUDA W, last, F, NF, weights, edge_lanes "
         "equal the CPU build (k=20 basic, k=31 canonical)")
-    return launches, results
+    check_align_cuda_cpu(dev)
+    return launches, align_launches, results
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the alignment path
+# ---------------------------------------------------------------------------
+
+SUBS = {65: 67, 67: 65, 71: 84, 84: 71}     # transversions A<->C, G<->T
+
+
+def align_reads(codes, n, rng, rl=100):
+    """``n`` reads of ``rl`` bp cut from ``codes``: 6 in 8 carry one
+    transversion at a position in [10, 90), 1 in 8 a 1-bp insertion or a
+    2-bp deletion, 1 in 8 are random. Returns (reads, kinds, source
+    windows)."""
+    letters = np.frombuffer(b"$ACGT", np.uint8)
+    reads, kinds, wins = [], [], []
+    for i in range(n):
+        kind = ("sub", "sub", "sub", "sub", "sub", "sub", "indel",
+                "random")[i % 8]
+        p = int(rng.integers(0, len(codes) - rl - 2))
+        win = letters[codes[p:p + rl]].tobytes()
+        q = int(rng.integers(10, 90))
+        if kind == "sub":
+            r = bytearray(win)
+            r[q] = SUBS[r[q]]
+            r = bytes(r)
+        elif kind == "indel" and rng.random() < 0.5:
+            r = win[:q] + b"ACGT"[int(rng.integers(0, 4))].to_bytes(
+                1, "little") + win[q:rl - 1]
+        elif kind == "indel":
+            ext = letters[codes[p:p + rl + 2]].tobytes()
+            r = ext[:q] + ext[q + 2:]
+        else:
+            r = letters[rng.integers(1, 5, rl)].tobytes()
+        reads.append(r)
+        kinds.append(kind)
+        wins.append(win)
+    return reads, kinds, wins
+
+
+def phase_align(graph, bq, codes, rng):
+    """Aligner.align_batch on the k = 20 graph, with CIGARs and score
+    only, then the label query of the score-only spellings (what query
+    --align does); returns the launch counts of the score-only run and
+    the rates."""
+    import torch
+    from metagraph_tpu_torch.align.aligner import Aligner
+    n = 1 << 13
+    reads, kinds, wins = align_reads(codes, n, rng)
+    al = Aligner(graph)
+    t0 = time.time()
+    al.align_batch(reads[:512])                    # warm: adjacency tables
+    al.align_batch(reads[:512], with_cigar=False)
+    torch.cuda.synchronize()
+    log(f"align warm-up (adjacency tables of {graph.num_nodes()} nodes, "
+        f"512 reads twice): {time.time() - t0:.2f} s")
+    rates = {}
+    out = {}
+    for with_cigar in (True, False):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out[with_cigar] = al.align_batch(reads, with_cigar=with_cigar)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = read_launches()
+        rates[with_cigar] = n / dt
+        log(f"align_batch {'with CIGARs' if with_cigar else 'score-only'}: "
+            f"{n} reads of 100 bp in {dt:.3f} s = {n / dt:.1f} reads/s; "
+            f"launches {launches}")
+    if launches["pallas_dp"] <= 0:
+        raise AssertionError("pallas_dp was not launched by the score-only "
+                             "alignment")
+    full, fast = out[True], out[False]
+    # query --align: the score-only run replaces each read by its best
+    # path spelling, then the labels are queried
+    t0 = time.time()
+    al.align_batch(reads, with_cigar=False)
+    labels = bq.get_labels_batch(
+        [res[0].sequence if res else r for res, r in zip(fast, reads)], 0.7)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    rates["query --align"] = n / dt
+    n_lab = sum(1 for lab, k in zip(labels, kinds) if lab and k != "random")
+    n_real = n - kinds.count("random")
+    log(f"query --align: {n} reads in {dt:.3f} s = {n / dt:.1f} reads/s; "
+        f"{n_lab} of {n_real} substitution and indel reads labelled")
+    if n_lab < 0.98 * n_real:      # reads across a record border may miss
+        raise AssertionError("query --align: too few reads labelled")
+    sub_ok = sum(1 for res, k, w in zip(full, kinds, wins) if k == "sub"
+                 and res and res[0].score == 195
+                 and res[0].cigar.count("X") == 1 and res[0].sequence == w)
+    n_sub = kinds.count("sub")
+    indel_ok = sum(1 for res, k in zip(full, kinds) if k == "indel" and res)
+    n_indel = kinds.count("indel")
+    n_rand = sum(1 for res, k in zip(full, kinds) if k == "random" and res)
+    log(f"align: {sub_ok} of {n_sub} substitution reads score 195 with one "
+        f"X and spell their window; {indel_ok} of {n_indel} indel reads "
+        f"align; {n_rand} of {kinds.count('random')} random reads align")
+    if sub_ok < 0.99 * n_sub or indel_ok < 0.99 * n_indel:
+        raise AssertionError("align: fewer than 99 % of the substitution or "
+                             "indel reads align as expected")
+    both = 0
+    for i, (a, b) in enumerate(zip(full, fast)):
+        if a and b:
+            both += 1
+            if (a[0].score, a[0].sequence, a[0].query_begin,
+                    a[0].query_end) != (b[0].score, b[0].sequence,
+                                        b[0].query_begin, b[0].query_end):
+                raise AssertionError(f"align read {i}: score-only differs "
+                                     f"from the CIGAR run: {a[0]} / {b[0]}")
+    log(f"align: score-only equals the CIGAR run (score, sequence, span) on "
+        f"all {both} reads both keep")
+    return launches, rates
+
+
+def _same_alignments(got, want, what):
+    for i, (gs, ws) in enumerate(zip(got, want)):
+        ok = len(gs) == len(ws) and all(
+            (a.score, a.cigar, a.query_begin, a.query_end, a.sequence,
+             a.orientation) == (b.score, b.cigar, b.query_begin,
+                                b.query_end, b.sequence, b.orientation)
+            and np.array_equal(a.nodes, b.nodes) for a, b in zip(gs, ws))
+        if not ok:
+            raise AssertionError(f"{what}: read {i} differs: {gs} / {ws}")
+
+
+def check_align_cuda_cpu(dev):
+    """512 reads on a 2^20-code k = 20 graph the port builds on each
+    device: CUDA and CPU alignments equal in every field."""
+    from metagraph_tpu_torch.align.aligner import Aligner
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    rng = np.random.default_rng(SEED + 4)
+    codes = rng.integers(1, 5, 1 << 20).astype(np.uint8)
+    reads, _, _ = align_reads(codes, 512, rng)
+    al = {d: Aligner(DbgSuccinct.from_boss(build_boss_from_codes(
+        codes, 20, mode="basic", device=d), mode="basic"))
+        for d in (dev, "cpu")}
+    for with_cigar in (True, False):
+        got, want = (al[d].align_batch(reads, with_cigar=with_cigar)
+                     for d in (dev, "cpu"))
+        _same_alignments(got, want, f"align CUDA vs CPU (with_cigar="
+                                    f"{with_cigar})")
+    log("align at 2^20 codes: CUDA results equal the CPU results in every "
+        "field on 512 reads, with CIGARs and score-only")
 
 
 # ---------------------------------------------------------------------------
@@ -366,10 +641,10 @@ def phase_cli(device):
     with tempfile.TemporaryDirectory() as tmp:
         fa = os.path.join(tmp, "in.fa")
         names = [f"rec{i}" for i in range(200)]
+        seqs = [letters[rng.integers(0, 4, int(rng.integers(
+            200, 1000)))].tobytes().decode() for _ in names]
         with open(fa, "w") as f:
-            for name in names:
-                seq = letters[rng.integers(0, 4, int(rng.integers(
-                    200, 1000)))].tobytes().decode()
+            for name, seq in zip(names, seqs):
                 f.write(f">{name}\n{seq}\n")
         g = os.path.join(tmp, "g")
 
@@ -383,18 +658,42 @@ def phase_cli(device):
                                      f"{res.returncode}:\n{res.stderr}")
             return res.stdout
 
+        # canonical for query and stats; basic for the alignments (the
+        # aligner spells canonical nodes without their orientation, as the
+        # JAX package does, so a canonical path's spelling is not the read)
+        gb = os.path.join(tmp, "gb")
         run("build", "-k", "31", "--mode", "canonical", "-o", g, fa)
-        run("annotate", "-i", g, "--anno-header", fa)
-        out = run("query", "-i", g, "-a", g + ".column.annodbg.npz", fa)
-        stats = run("stats", g)
-        lines = out.splitlines()
+        run("build", "-k", "31", "--mode", "basic", "-o", gb, fa)
         want = [f"{i}\t{n}\t{n}" for i, n in enumerate(names)]
-        if lines != want:
-            raise AssertionError(f"CLI query output wrong: {lines[:3]}")
+        for graph, extra in ((g, ()), (gb, ("--align",))):
+            run("annotate", "-i", graph, "--anno-header", fa)
+            out = run("query", *extra, "-i", graph, "-a",
+                      graph + ".column.annodbg.npz", fa)
+            if out.splitlines() != want:
+                raise AssertionError(f"CLI query {' '.join(extra)} output "
+                                     f"wrong: {out.splitlines()[:3]}")
+        stats = run("stats", g)
         if "mode: canonical" not in stats:
             raise AssertionError(f"CLI stats output wrong:\n{stats}")
-    log(f"CLI build/annotate/query/stats --device {device}: exit 0; each of "
-        f"{len(names)} records labelled with its own name")
+        seqs = {n: s for n, s in zip(names, seqs)}
+        rows = [line.split("\t") for line in
+                run("align", "-i", gb, fa).splitlines()]
+        if [r[0] for r in rows] != names or any(
+                r[2:] != ["+", seqs[r[0]], str(2 * len(seqs[r[0]])),
+                          str(len(seqs[r[0]])), f"{len(seqs[r[0]])}=", "0"]
+                for r in rows):
+            raise AssertionError(f"CLI align output wrong: {rows[:2]}")
+        recs = [json.loads(line) for line in
+                run("align", "--json", "-i", gb, fa).splitlines()]
+        if [r["name"] for r in recs] != names or any(
+                (r["score"], r["cigar"], r["sequence"]) !=
+                (2 * len(seqs[r["name"]]), f"{len(seqs[r['name']])}=",
+                 seqs[r["name"]]) for r in recs):
+            raise AssertionError(f"CLI align --json output wrong: {recs[:2]}")
+    log(f"CLI build/annotate/query/query --align/align/align --json/stats "
+        f"--device {device}: exit 0; each of {len(names)} records labelled "
+        f"with its own name and aligned to its graph with score 2*len and "
+        f"CIGAR len=")
 
 
 def main():
@@ -420,19 +719,23 @@ def main():
         f"{time.time() - t0:.2f} s")
 
     summary = phase_kernels(dev)
-    launches, _ = phase_main_path(dev)
+    build_launches, (align_launches, _), _ = phase_main_path(dev)
     phase_cli("cuda")
 
     kernels = []
-    for kname, src, rep in (
+    for kname, src, rep, launches in (
             ("partition_compact", "metagraph_tpu_torch/csrc/partition.cu",
-             "metagraph_tpu/common/merge.py:633"),
+             "metagraph_tpu/common/merge.py:634", build_launches),
             ("merge_sorted", "metagraph_tpu_torch/csrc/merge.cu",
-             "metagraph_tpu/common/merge.py:332")):
-        err, ms, plain = summary[kname]
+             "metagraph_tpu/common/merge.py:333", build_launches),
+            ("pallas_dp", "metagraph_tpu_torch/csrc/align_dp.cu",
+             "metagraph_tpu/align/pallas_dp.py:185", align_launches)):
+        err, ms, plain, lib_ms, (bound_ms, bound_by) = summary[kname]
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[kname],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain})
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

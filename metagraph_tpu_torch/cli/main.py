@@ -1,4 +1,5 @@
-"""The ``metagraph`` CLI of the port: build, annotate, query and stats.
+"""The ``metagraph`` CLI of the port: build, annotate, query, align and
+stats.
 
 PyTorch counterpart of ``metagraph_tpu/cli/main.py`` for the subset the
 port covers; stdout is byte for byte that of the JAX CLI. Every command
@@ -9,12 +10,16 @@ ported".
     python -m metagraph_tpu_torch.cli.main build -k 31 -o graph reads.fa
     python -m metagraph_tpu_torch.cli.main annotate -i graph --anno-header reads.fa
     python -m metagraph_tpu_torch.cli.main query -i graph -a graph.column.annodbg.npz q.fa
+    python -m metagraph_tpu_torch.cli.main align -i graph reads.fa
+    python -m metagraph_tpu_torch.cli.main query --align -i graph \
+        -a graph.column.annodbg.npz q.fa
     python -m metagraph_tpu_torch.cli.main stats graph
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from typing import List, Optional, Sequence
@@ -22,7 +27,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 # the JAX CLI's other subcommands
-_NOT_PORTED = ("clean", "extend", "merge", "concatenate", "compare", "align",
+_NOT_PORTED = ("clean", "extend", "merge", "concatenate", "compare",
                "transform", "transform_anno", "relax_brwt", "assemble",
                "merge_anno", "server_query", "coordinate", "coordinator",
                "worker")
@@ -162,12 +167,25 @@ def cmd_query(args):
     g = load_graph(args.infile_base, device=args.device)
     ann = Annotation.load(args.annotation, device=args.device)
     bq = BatchQuery(AnnotatedDbg(graph=g, annotation=ann))
+    aligner = None
+    if args.align or args.batch_align:
+        from ..align.aligner import Aligner, AlignerConfig
+        aligner = Aligner(g, AlignerConfig(
+            min_exact_match=args.align_min_exact_match))
     t0 = time.time()
     n = idx = 0
     out = sys.stdout
     # prefetch: host parsing of the next batch overlaps device work
     for batch in BatchFeeder(iter_batches(args.fnames,
                                           batch_bytes=args.batch_size)):
+        if aligner is not None:
+            # reference query --align / --batch-align: each read is
+            # replaced by its best path spelling (score-only alignment)
+            all_res = aligner.align_batch([rec.seq for rec in batch],
+                                          with_cigar=False)
+            for rec, res in zip(batch, all_res):
+                if res:
+                    rec.seq = res[0].sequence
         seqs = [r.seq for r in batch]
         if args.count_labels:
             results = bq.get_top_labels_batch(seqs, args.num_top_labels,
@@ -189,6 +207,102 @@ def cmd_query(args):
             n += 1
     dt = max(time.time() - t0, 1e-9)
     log(f"Queried {n} sequences in {dt:.2f} s ({n / dt:.0f} reads/s)")
+
+
+def cmd_align(args):
+    from ..align.aligner import Aligner, AlignerConfig
+    from ..graph.io import load_graph
+    from ..seqio.fasta import parse_records
+
+    if args.outfile_base and args.outfile_base.endswith(".gfa"):
+        raise SystemExit("align: the GFA path mode (-o *.gfa) is not yet "
+                         "ported")
+    g = load_graph(args.infile_base, device=args.device)
+    cfg = AlignerConfig(
+        match_score=args.match_score,
+        mm_transition_penalty=args.mm_transition_penalty,
+        mm_transversion_penalty=args.mm_transversion_penalty,
+        gap_opening_penalty=args.gap_opening_penalty,
+        gap_extension_penalty=args.gap_extension_penalty,
+        xdrop=args.align_xdrop,
+        min_seed_length=args.align_min_seed_length or g.k,
+        max_seed_length=args.align_max_seed_length,
+        min_exact_match=args.align_min_exact_match,
+        max_seeds_per_locus=args.align_max_num_seeds_per_locus,
+        min_cell_score=args.align_min_cell_score,
+        max_ram_mb=args.align_max_ram,
+    )
+    if args.align_max_nodes_per_seq_char:
+        # the beam width is the expanded-nodes-per-query-char bound here
+        cfg.beam_width = max(int(args.align_max_nodes_per_seq_char), 1)
+    if args.align_edit_distance:
+        # unit scoring matrix and unit gap costs
+        cfg.score_matrix_type = "unit"
+        cfg.match_score = 1
+        cfg.mm_transition_penalty = 1
+        cfg.mm_transversion_penalty = 1
+        cfg.gap_opening_penalty = 1
+        cfg.gap_extension_penalty = 1
+    aligner = Aligner(g, cfg)
+    out = open(args.outfile_base, "w") if args.outfile_base else sys.stdout
+    recs = []
+    for f in args.fnames:
+        recs.extend(parse_records(f))
+    if args.map_only or args.query_presence:
+        for rec in recs:
+            name = rec.name.decode()
+            nodes = np.asarray(g.map_to_nodes(rec.seq))
+            n_disc = int((nodes > 0).sum())
+            if args.query_presence:
+                # 0/1 presence per read; with --filter-present the present
+                # reads as FASTA. A read with no full k-mer is absent
+                n_k = len(nodes)
+                min_disc = n_k - int(n_k * (1 - args.discovery_fraction))
+                found = n_k > 0 and n_disc >= min_disc
+                if args.filter_present:
+                    if found:
+                        out.write(f">{name}\n{rec.seq.decode()}\n")
+                else:
+                    out.write(f"{int(found)}\n")
+            elif args.count_kmers:
+                # name \t discovered/total/unique
+                n_uniq = len(np.unique(nodes[nodes > 0]))
+                out.write(f"{name}\t{n_disc}/{len(nodes)}/{n_uniq}\n")
+            else:
+                for i, v in enumerate(nodes):
+                    out.write(f"{rec.seq[i:i + g.k].decode()}: {int(v)}\n")
+        if out is not sys.stdout:
+            out.close()
+        return
+    t0 = time.time()
+    all_results = aligner.align_batch(
+        [r.seq for r in recs], both_strands=args.align_both_strands,
+        num_alternative_paths=args.num_alternative_paths)
+    dt = max(time.time() - t0, 1e-9)
+    log(f"Aligned {len(recs)} reads in {dt:.2f} s ({len(recs) / dt:.0f} "
+        f"reads/s)")
+    for rec, results in zip(recs, all_results):
+        name = rec.name.decode()
+        if args.align_min_path_score:
+            results = [r for r in results
+                       if r.score >= args.align_min_path_score]
+        if args.json:
+            for r in results:
+                out.write(json.dumps(r.to_json(name)) + "\n")
+            continue
+        # header \t query [\t +/- \t seq \t score \t matches \t cigar
+        # \t offset]...
+        row = f"{name}\t{rec.seq.decode()}"
+        if not results:
+            row += "\t*\t*\t0\t*\t*\t*"
+        else:
+            for r in results:
+                strand = "-" if r.orientation else "+"
+                row += (f"\t{strand}\t{r.sequence.decode()}\t{r.score}"
+                        f"\t{r.num_matches}\t{r.cigar}\t0")
+        out.write(row + "\n")
+    if out is not sys.stdout:
+        out.close()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -235,6 +349,69 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--labels-delimiter", dest="anno_labels_delimiter",
                     default=":")
     sp.add_argument("--batch-size", type=int, default=100 << 20)
+    sp.add_argument("--align", action="store_true")
+    sp.add_argument("--batch-align", action="store_true")
+    # the reference's hull bounds (--max-hull-depth/--max-hull-forks) and
+    # --fast are accepted so its command lines run unchanged: the batch
+    # path aligns against the full graph
+    sp.add_argument("--max-hull-depth", type=int, default=None)
+    sp.add_argument("--max-hull-forks", type=int, default=None)
+    sp.add_argument("--align-min-exact-match", type=float, default=0.7)
+    sp.add_argument("--fast", action="store_true")
+    sp.add_argument("fnames", nargs="+")
+
+    sp = add("align", cmd_align)
+    sp.add_argument("-i", "--infile-base", required=True)
+    sp.add_argument("-o", "--outfile-base", default=None)
+    sp.add_argument("--map", dest="map_only", action="store_true")
+    sp.add_argument("--count-kmers", action="store_true")
+    sp.add_argument("--query-presence", action="store_true",
+                    help="test reads for presence, report 0/1")
+    sp.add_argument("--filter-present", action="store_true",
+                    help="with --query-presence: emit present reads as "
+                         "FASTA")
+    sp.add_argument("--discovery-fraction", type=float, default=1.0)
+    sp.add_argument("--align-both-strands", action="store_true")
+    sp.add_argument("--align-edit-distance", action="store_true")
+    sp.add_argument("--align-min-exact-match", type=float, default=0.7)
+    sp.add_argument("--compacted", action="store_true")
+    sp.add_argument("--align-min-seed-length", type=int, default=0)
+    sp.add_argument("--align-max-seed-length", type=int, default=0,
+                    help="clamp exact-match anchors to this length")
+    sp.add_argument("--align-max-num-seeds-per-locus", type=int,
+                    default=16)
+    sp.add_argument("--align-max-nodes-per-seq-char", type=float,
+                    default=0.0,
+                    help="bounds the beam width (expanded nodes per "
+                         "query char)")
+    # scoring flags take both the short and the reference's --align-*
+    # spellings
+    sp.add_argument("--match-score", "--align-match-score",
+                    dest="match_score", type=int, default=2)
+    sp.add_argument("--mm-transition-penalty",
+                    "--align-mm-transition-penalty",
+                    dest="mm_transition_penalty", type=int, default=3)
+    sp.add_argument("--mm-transversion-penalty",
+                    "--align-mm-transversion-penalty",
+                    dest="mm_transversion_penalty", type=int, default=3)
+    sp.add_argument("--gap-opening-penalty", "--align-gap-open-penalty",
+                    dest="gap_opening_penalty", type=int, default=5)
+    sp.add_argument("--gap-extension-penalty",
+                    "--align-gap-extension-penalty",
+                    dest="gap_extension_penalty", type=int, default=2)
+    sp.add_argument("--align-xdrop", type=int, default=27)
+    sp.add_argument("--align-min-cell-score", type=int, default=None,
+                    help="prune beam entries whose best DP cell falls "
+                         "below this")
+    sp.add_argument("--align-max-ram", type=float, default=None,
+                    help="approximate per-batch DP memory budget in MB; "
+                         "caps the extension sub-batch size")
+    sp.add_argument("--align-min-path-score", type=int, default=0,
+                    help="drop alignments scoring below this")
+    sp.add_argument("--num-alternative-paths",
+                    "--align-alternative-alignments",
+                    dest="num_alternative_paths", type=int, default=1)
+    sp.add_argument("--json", action="store_true")
     sp.add_argument("fnames", nargs="+")
     return p
 

@@ -1,11 +1,12 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface and loaded with ctypes.
+Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, all sources at once
+(one ``nvcc`` process each, started together), and loaded with ctypes.
 Nothing happens at import: the CPU tests import every module, and a
-machine without ``nvcc`` never builds. The library lands in
-``metagraph_tpu_torch/_build/`` under a name that carries a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one
+machine without ``nvcc`` never builds. The libraries land in
+``metagraph_tpu_torch/_build/`` under names that carry a hash of the
+source and flags, so an edited source rebuilds and an unchanged one
 loads the cached file.
 """
 
@@ -17,26 +18,36 @@ import hashlib
 import os
 import shutil
 import subprocess
-import tempfile
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("partition.cu", "merge.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
-_SIGNATURES = {
-    "mg_partition_tile": ([], ctypes.c_int),
-    "mg_partition": ([_P, ctypes.c_int, ctypes.c_longlong, _P, _P, _P,
-                      ctypes.c_int, _P, _P, _P, ctypes.c_longlong,
-                      ctypes.c_uint, _P, _P, _P], ctypes.c_int),
-    "mg_merge_tile": ([], ctypes.c_int),
-    "mg_merge": ([_P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int,
-                  _P, _P, _P, _P, ctypes.c_int, _P, _P, _P, _P, _P],
-                 ctypes.c_int),
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# source -> {function: (argtypes, restype)}
+SOURCES = {
+    "partition.cu": {
+        "mg_partition_tile": ([], _I),
+        "mg_partition": ([_P, _I, _LL, _P, _P, _P, _I, _P, _P, _P, _LL,
+                          ctypes.c_uint, _P, _P, _P], _I),
+    },
+    "merge.cu": {
+        "mg_merge_tile": ([], _I),
+        "mg_merge": ([_P, _LL, _P, _LL, _I, _P, _P, _P, _P, _I, _P, _P, _P,
+                      _P, _P], _I),
+    },
+    "align_dp.cu": {
+        "mg_align_dp_scratch_ints": ([_LL, _I], _LL),
+        "mg_align_dp": ([_P, _P, _P, _P, _LL, _I, _I, _P, _I, _I, _I, _I,
+                         _P, _P, _P], _I),
+    },
 }
+
 
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
@@ -46,46 +57,65 @@ def _nvcc() -> str:
                        "metagraph_tpu_torch/csrc need the CUDA toolkit")
 
 
-def _digest() -> str:
+def _lib_path(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(CSRC, name), "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
-    return h.hexdigest()[:16]
+    with open(os.path.join(CSRC, name), "rb") as f:
+        h.update(name.encode() + b"\0" + f.read())
+    stem = os.path.splitext(name)[0]
+    return os.path.join(BUILD_DIR, f"libmg_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build_kernels() -> str:
-    """Compile the kernels if no library for these sources exists yet;
-    returns the library's path."""
-    path = os.path.join(BUILD_DIR, f"libmg_kernels_{_digest()}.so")
-    if os.path.exists(path):
-        return path
+def build_kernels() -> list:
+    """Compile every source that has no library yet, in parallel; returns
+    the libraries' paths in the order of ``SOURCES``."""
+    paths = [_lib_path(name) for name in SOURCES]
+    todo = [(name, path) for name, path in zip(SOURCES, paths)
+            if not os.path.exists(path)]
+    if not todo:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    jobs = []
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, path)      # atomic: concurrent builds agree
+        for name, path in todo:
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name)]
+            jobs.append((cmd, tmp, path, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        errors = []
+        for cmd, tmp, path, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{err}")
+            else:
+                os.replace(tmp, path)  # atomic: concurrent builds agree
+        if errors:
+            raise RuntimeError("\n".join(errors))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
+        for _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths
 
 
 @functools.lru_cache(maxsize=None)
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    cdll = ctypes.CDLL(build_kernels())
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(cdll, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return cdll
+def lib() -> types.SimpleNamespace:
+    """Every kernel function, bound from the loaded libraries (built on
+    first call)."""
+    fns = {}
+    for (name, sigs), path in zip(SOURCES.items(), build_kernels()):
+        cdll = ctypes.CDLL(path)
+        for fname, (argtypes, restype) in sigs.items():
+            fn = getattr(cdll, fname)
+            fn.argtypes = argtypes
+            fn.restype = restype
+            fns[fname] = fn
+    return types.SimpleNamespace(**fns)
 
 
 def check(status: int, what: str):

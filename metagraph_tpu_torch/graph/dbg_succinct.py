@@ -70,6 +70,19 @@ class DbgSuccinct:
         return torch.where((edge > 0) & self.valid_rank.bit(edge),
                            self.valid_rank.rank1(edge), 0)
 
+    def node_to_edge(self, node: torch.Tensor) -> torch.Tensor:
+        """DBG node id -> BOSS edge row (0 for node 0)."""
+        return torch.where(node > 0, self.valid_rank.select1(node), 0)
+
+    def node_lanes(self, node: torch.Tensor) -> torch.Tensor:
+        """Packed edge k-mers of a node batch (adjacency and decoding go
+        through it)."""
+        if self.boss.edge_lanes is None:
+            raise NotImplementedError(
+                "node k-mers of small-state graphs are not yet ported")
+        edge = self.node_to_edge(node)
+        return self.boss.edge_lanes[:, torch.clamp(edge - 1, min=0)]
+
     def map_codes_to_nodes(self, codes: torch.Tensor) -> torch.Tensor:
         """Node id of every k-window of a code array (0 = absent or
         invalid window); (len(codes) - k + 1,) int64."""
@@ -93,3 +106,54 @@ class DbgSuccinct:
         out = self.map_codes_to_nodes(
             torch.from_numpy(codes).to(self.device))
         return out.cpu().numpy().astype(np.int32)
+
+    # -- adjacency ---------------------------------------------------------
+
+    def _adjacent(self, nodes: torch.Tensor, shifted, set_slot: int
+                  ) -> torch.Tensor:
+        """(N, sigma-1) node ids of the k-mers ``shifted`` with field
+        ``set_slot`` set to each char c in 1..sigma-1 (0 = absent)."""
+        B = self.alphabet.bits_per_char
+        cols = []
+        for c in range(1, self.alphabet.size):
+            q = packed.set_field(
+                shifted, set_slot,
+                torch.full((shifted.shape[1],), c, dtype=packed.LANE_DTYPE,
+                           device=shifted.device), B)
+            cols.append(self.edge_to_node(self.boss.map_to_edges(q)))
+        out = torch.stack(cols, dim=1)
+        return torch.where((nodes > 0)[:, None], out, 0)
+
+    def successors(self, nodes: torch.Tensor) -> torch.Tensor:
+        """(N, sigma-1) node ids of the successors (0-padded), one column
+        per next character c in 1..sigma-1."""
+        lanes = self.node_lanes(nodes)
+        shifted = packing.to_next(lanes, self.k, self.alphabet.bits_per_char,
+                                  0)
+        return self._adjacent(nodes, shifted, 0)
+
+    def predecessors(self, nodes: torch.Tensor) -> torch.Tensor:
+        """(N, sigma-1) node ids of the predecessors (0-padded), one column
+        per first character c in 1..sigma-1."""
+        lanes = self.node_lanes(nodes)
+        shifted = packing.to_prev(lanes, self.k, self.alphabet.bits_per_char,
+                                  0)
+        return self._adjacent(nodes, shifted, 1)
+
+    def outdegree(self, nodes: torch.Tensor) -> torch.Tensor:
+        return torch.sum(self.successors(nodes) > 0, dim=1)
+
+    def indegree(self, nodes: torch.Tensor) -> torch.Tensor:
+        return torch.sum(self.predecessors(nodes) > 0, dim=1)
+
+    # -- node decoding -----------------------------------------------------
+
+    def node_kmers_chars(self, nodes) -> np.ndarray:
+        """(N, k) uint8 char codes of the node k-mers, on the host."""
+        nodes = torch.as_tensor(np.asarray(nodes, np.int64), device=self.device)
+        lanes = self.node_lanes(nodes)
+        return packing.unpack_to_chars(
+            lanes, self.k, self.alphabet.bits_per_char).cpu().numpy()
+
+    def node_sequence(self, node: int) -> str:
+        return self.alphabet.decode(self.node_kmers_chars([node])[0])

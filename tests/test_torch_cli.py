@@ -1,8 +1,8 @@
 """The port's CLI against the JAX package's CLI, in process.
 
-build, annotate, query and stats must print byte-identical stdout (the
-port with ``--device cpu``), and a ``.dbg.npz`` written by either
-package must load in the other.
+build, annotate, query (also with --align), align and stats must print
+byte-identical stdout (the port with ``--device cpu``), and a
+``.dbg.npz`` written by either package must load in the other.
 """
 
 import numpy as np
@@ -111,8 +111,73 @@ def test_annotate_counts_identical(fasta, capsys):
         np.testing.assert_array_equal(tz[key], jz[key])
 
 
+@pytest.fixture(scope="module")
+def align_graphs(fasta, tmp_path_factory):
+    """A k=15 basic graph of in.fa built by each package."""
+    tmp = tmp_path_factory.mktemp("align")
+    j, t = str(tmp / "j"), str(tmp / "t")
+    inp = str(fasta / "in.fa")
+    jmain(["build", "-k", "15", "-o", j, inp])
+    tmain(["build", "-k", "15", "-o", t, inp, "--device", "cpu"])
+    return j, t
+
+
+ALIGNS = [
+    [],
+    ["--json"],
+    ["--align-both-strands", "--num-alternative-paths", "2"],
+    ["--align-edit-distance", "--align-min-path-score", "10"],
+    ["--map"],
+    ["--map", "--count-kmers"],
+    ["--query-presence", "--discovery-fraction", "0.5"],
+    ["--query-presence", "--filter-present"],
+]
+
+
+@pytest.mark.parametrize("flags", ALIGNS)
+def test_align_identical(fasta, align_graphs, capsys, flags):
+    j, t = align_graphs
+    q = str(fasta / "q.fa")
+    want = run(capsys, jmain, ["align", "-i", j] + flags + [q])
+    assert want
+    assert tport(capsys, ["align", "-i", t] + flags + [q]) == want
+
+
+def test_align_to_file(fasta, align_graphs, capsys, tmp_path):
+    j, t = align_graphs
+    q = str(fasta / "q.fa")
+    run(capsys, jmain, ["align", "-i", j, "-o", str(tmp_path / "j.tsv"), q])
+    assert tport(capsys, ["align", "-i", t, "-o", str(tmp_path / "t.tsv"),
+                          q]) == ""
+    assert (tmp_path / "t.tsv").read_bytes() == \
+        (tmp_path / "j.tsv").read_bytes()
+
+
+@pytest.mark.parametrize("mode", ["basic", "canonical"])
+def test_query_align_identical(fasta, capsys, mode):
+    j, t = str(fasta / f"qj{mode}"), str(fasta / f"qt{mode}")
+    inp = str(fasta / "in.fa")
+    run(capsys, jmain, ["build", "-k", "15", "--mode", mode, "-o", j, inp])
+    tport(capsys, ["build", "-k", "15", "--mode", mode, "-o", t, inp])
+    run(capsys, jmain, ["annotate", "-i", j, "--anno-header", inp])
+    tport(capsys, ["annotate", "-i", t, "--anno-header", inp])
+    for flags in (["--align"],
+                  ["--batch-align", "--align-min-exact-match", "0.5",
+                   "--count-labels", "--discovery-fraction", "0.5",
+                   "--max-hull-depth", "3", "--fast"]):
+        argv = ["query"] + flags + [str(fasta / "q.fa")]
+        want = run(capsys, jmain, argv[:1] + ["-i", j, "-a",
+                                              j + ".column.annodbg.npz"]
+                   + argv[1:])
+        assert want
+        assert tport(capsys, argv[:1] + ["-i", t, "-a",
+                                         t + ".column.annodbg.npz"]
+                     + argv[1:]) == want
+
+
 @pytest.mark.parametrize("argv", [
     ["assemble", "-i", "g"],
+    ["align", "-i", "g", "-o", "paths.gfa", "q.fa"],
     ["build", "-k", "11", "--mode", "primary", "x.fa"],
     ["build", "-k", "11", "--suffix-len", "2", "x.fa"],
     ["query", "-i", "g", "-a", "a", "--query-coords", "q.fa"],

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from metagraph_tpu_torch.align import pallas_dp
 from metagraph_tpu_torch.common import merge, packed
 
 pytestmark = pytest.mark.gpu
@@ -128,3 +129,106 @@ def test_kernels_reject_bad_input(dev):
                                               device=dev), 10)
     with pytest.raises(ValueError):
         merge.merge_sorted(x, x)
+
+
+def _pairs(rng, R, LQ, LR, dev):
+    """Related (query, ref) pairs with random lengths and the edge rows:
+    qlen 0, rlen 0, an identical pair and all-0 codes."""
+    q = rng.integers(1, 5, (R, LQ)).astype(np.int32)
+    r = rng.integers(1, 5, (R, LR)).astype(np.int32)
+    n = min(LQ, LR)
+    r[::2, :n] = q[::2, :n]
+    ql = rng.integers(0, LQ + 1, R).astype(np.int32)
+    rl = rng.integers(0, LR + 1, R).astype(np.int32)
+    if R >= 5:
+        ql[1], rl[2] = 0, 0
+        r[3, :n] = q[3, :n]
+        ql[3], rl[3] = n, n
+        q[4], r[4] = 0, 0
+    return [torch.from_numpy(x).to(dev) for x in (q, r, ql, rl)]
+
+
+DP_CASES = [
+    # R, LQ, LR, penalties (match, tpen, tvpen, open, ext)
+    (1, 1, 1, (2, 3, 3, 5, 2)),
+    (7, 33, 40, (2, 3, 3, 5, 2)),
+    (33, 112, 128, (1, 1, 4, 3, 1)),
+    (1000, 100, 120, (2, 3, 3, 5, 2)),
+    (64, 3000, 3000, (2, 3, 3, 5, 2)),      # columns in the scratch buffer
+    (9, 20, 23, (2, 1, 2, 1, 4)),           # open < ext
+]
+
+
+@pytest.mark.parametrize("R,LQ,LR,pen", DP_CASES)
+def test_align_dp_kernel_matches_plain(dev, R, LQ, LR, pen):
+    match, tpen, tvpen, open_p, ext_p = pen
+    args = _pairs(np.random.default_rng(R + LQ), R, LQ, LR, dev)
+    kw = dict(match=match, tpen=tpen, tvpen=tvpen, open_p=open_p,
+              ext_p=ext_p)
+    n0 = pallas_dp.dp_launches
+    got = pallas_dp.batch_align_ends(*args, **kw)
+    scores = pallas_dp.batch_align_scores(*args, **kw)
+    torch.cuda.synchronize()
+    assert pallas_dp.dp_launches == n0 + 2
+    table = pallas_dp.score_table(match, tpen, tvpen, None, dev)
+    want = pallas_dp.align_plain(*args, table, open_p, ext_p, True)
+    _same([got, scores], [want, want[:, 0]])
+
+
+def test_align_dp_kernel_unit_table(dev):
+    unit = np.full((5, 5), -1, np.int32)
+    np.fill_diagonal(unit, 1)
+    unit[0, 0] = -1
+    args = _pairs(np.random.default_rng(3), 50, 60, 70, dev)
+    got = pallas_dp.batch_align_ends(*args, sub_tt=unit, open_p=1, ext_p=1)
+    want = pallas_dp.align_plain(*args, torch.from_numpy(unit).to(dev),
+                                 1, 1, True)
+    _same([got], [want])
+
+
+def test_align_dp_kernel_rejects_bad_input(dev):
+    q, r, ql, rl = _pairs(np.random.default_rng(1), 4, 8, 8, dev)
+    with pytest.raises(TypeError):
+        pallas_dp.batch_align_ends(q.long(), r, ql, rl)
+    with pytest.raises(ValueError):
+        pallas_dp.batch_align_ends(q, r[:3], ql, rl)
+    with pytest.raises(ValueError):
+        pallas_dp.batch_align_ends(q, r, ql, rl,
+                                   sub_tt=np.zeros((33, 33), np.int32))
+    n0 = pallas_dp.dp_launches
+    z = torch.zeros((0, 8), dtype=torch.int32, device=dev)
+    e = torch.zeros((0,), dtype=torch.int32, device=dev)
+    assert pallas_dp.batch_align_ends(z, z, e, e).shape == (0, 3)
+    assert pallas_dp.dp_launches == n0
+
+
+def test_aligner_cuda_equals_cpu(dev):
+    """align_batch on the card equals the CPU run field for field, with
+    and without CIGARs, on a graph the port builds on each device."""
+    from metagraph_tpu_torch.align.aligner import Aligner
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    rng = np.random.default_rng(11)
+    codes = rng.integers(1, 5, 5000).astype(np.uint8)
+    letters = np.frombuffer(b"$ACGT", np.uint8)
+    ref = letters[codes].tobytes()
+    reads = []
+    for i in range(64):
+        p = int(rng.integers(0, len(ref) - 100))
+        r = bytearray(ref[p:p + 100])
+        r[int(rng.integers(10, 90))] = ord("A")
+        reads.append(bytes(r) if i % 4 else ref[p:p + 11])
+    graphs = [DbgSuccinct.from_boss(build_boss_from_codes(
+        codes, 20, mode="basic", device=d), mode="basic")
+        for d in (dev, "cpu")]
+    for with_cigar in (True, False):
+        got, want = (Aligner(g).align_batch(reads, with_cigar=with_cigar)
+                     for g in graphs)
+        for gs, ws in zip(got, want):
+            assert len(gs) == len(ws)
+            for a, b in zip(gs, ws):
+                assert (a.score, a.cigar, a.query_begin, a.query_end,
+                        a.sequence, a.orientation) == \
+                    (b.score, b.cigar, b.query_begin, b.query_end,
+                     b.sequence, b.orientation)
+                assert np.array_equal(a.nodes, b.nodes)
