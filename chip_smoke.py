@@ -9,16 +9,17 @@ Phases (each raises on failure; the process exits non-zero):
   1. builds the CUDA kernels of metagraph_tpu_torch/csrc from source.
   2. checks each kernel against its plain PyTorch version on the card,
      bit for bit, at the main path's shapes (2^25 entries for the build
-     kernels; 2^14 pairs of 112 x 128 for the alignment DP) and at edge
-     cases; prints the median times of the kernel, of its plain version
-     and (where one exists) of one PyTorch library call, and its bound.
+     kernels, the sort at L = 2, 4 and 4 with a payload; 2^14 pairs of
+     112 x 128 for the alignment DP) and at edge cases; prints the median
+     times of the kernel, of its plain version and (where one exists) of
+     one PyTorch library call, and its bound.
   3. the main paths, each with every kernel's launch counter zeroed just
      before and read just after it:
      a. build: build_boss_from_codes on 2^25 random ACGT codes, k = 31
         canonical and k = 20 basic; then annotates the k = 20 input split
         into 1000 labelled records and queries 2^15 reads of 100 bp.
-        Checks: real-edge counts against numpy, sorted edges, both build
-        kernels launched, every sampled read carries its record's label,
+        Checks: real-edge counts against numpy, sorted edges, the three
+        build kernels launched, every sampled read carries its record's label,
         CUDA label counts equal CPU counts on 512 reads, and at 2^16 codes
         the CUDA build equals the CPU build array for array.
      b. align: Aligner.align_batch on the k = 20 graph, 2^13 reads of
@@ -28,8 +29,22 @@ Phases (each raises on failure; the process exits non-zero):
         the indel reads align, score-only agrees with the CIGAR run, the
         DP kernel launched; at 2^20 codes, 512 reads align identically on
         CUDA and on the CPU.
+     c. primary: build_boss_from_codes(mode="primary") on the 2^25 codes
+        at k = 31 (the finish over sorts of all real edges), then 100
+        labelled records of 2^15 codes annotated and 2^13 reads of them
+        and their reverse complements queried through CanonicalDbg.
+        Checks: real edges =
+        the numpy count of canonical forms, sorted edges, the three build
+        kernels launched, every read and reverse complement labelled, and
+        at 2^16 codes the CUDA build equals the CPU build.
+     d. KMC: a KMC2 database of the forward k = 31 k-mers of 2^24 codes
+        with their counts, read by seqio/kmc.py and built by
+        collect_counted_kmers + build_boss_from_kmers; the graph must equal
+        build_boss_from_codes on those codes, the build kernels launched.
   4. the CLI: build, annotate, query, query --align, align (TSV and
-     --json) and stats with --device cuda.
+     --json) and stats with --device cuda; build --mode primary, stats,
+     annotate and query (records and reverse complements) on it; build
+     from a KMC database with --min-count 2.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -168,6 +183,77 @@ def check_merge(gen, dev, na, nb, L, time_it=False, a=None, b=None):
     return err, ms, plain, None, bound(2 * 4 * (L + 1) * ntot)
 
 
+def check_sort(gen, dev, n, L, E, time_it=False, x=None):
+    """sort_packed against its plain version, lanes and payloads bit for
+    bit (both are stable, so payload order is fixed)."""
+    import torch
+    from metagraph_tpu_torch.common import merge, packed
+    if x is None:
+        x = torch.randint(-2**31, 2**31, (L, n), generator=gen,
+                          dtype=torch.int64, device=dev).to(torch.int32)
+    n = x.shape[1]
+    extras = [torch.randint(-2**31, 2**31, (n,), generator=gen,
+                            dtype=torch.int64, device=dev).to(torch.int32)
+              for _ in range(E)]
+    got, ge = merge.sort_packed(x, *extras)
+    want, we = merge.sort_packed_plain(x, *extras)
+    torch.cuda.synchronize()
+    err = max_abs_err([got, *ge], [want, *we])
+    if err:
+        raise AssertionError(f"sort_packed n={n} L={x.shape[0]} E={E}: "
+                             f"kernel differs from plain (err {err})")
+    if not time_it:
+        return err
+    ms = cuda_ms(lambda: merge.sort_packed(x, *extras))
+    plain = cuda_ms(lambda: merge.sort_packed_plain(x, *extras))
+    lib_ms = None
+    if L <= 2 and not E:
+        # library yardstick: one stable torch.sort of the fused int64 key
+        # (two lanes fit one key; more lanes or a payload need more calls)
+        (key,) = packed._sort_keys(x)
+        lib_ms = cuda_ms(lambda: torch.sort(key, stable=True))
+    # lanes + payloads read once and written once
+    return err, ms, plain, lib_ms, bound(2 * (4 * L + 4 * E) * n)
+
+
+def phase_sort(gen, dev):
+    """sort_packed at the main path's shapes (the collect's L = 2, the
+    sort-based finish's L = 4, the KMC stage's L = 4 with one payload)
+    and at edge cases, all bit-exact; returns the L = 2 summary."""
+    import torch
+    from metagraph_tpu_torch.common import merge, packed
+    n = N_CODES
+    summary = None
+    for L, E, what in ((2, 0, "collect, 2-bit domain"),
+                       (4, 0, "finish keys, k=31"),
+                       (4, 1, "KMC sort-unique / rc half, k=31")):
+        res = check_sort(gen, dev, n, L, E, time_it=True)
+        err, ms, plain, lib_ms, (bms, _) = res
+        lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
+        log(f"sort_packed L={L} E={E} N=2^25 ({what}): bit-exact, kernel "
+            f"{ms:.3f} ms, plain {plain:.3f} ms, library torch.sort of the "
+            f"fused key {lib}, bound {bms:.3f} ms (median of 5)")
+        summary = summary or res
+    leaf = merge._cuda.lib().mg_sort_leaf()
+    for m in (0, 1, 2, leaf - 1, leaf, leaf + 1, 4 * leaf + 100,
+              (1 << 20) + 13):
+        check_sort(gen, dev, m, 3, 2)              # + a lone trailing run
+    m = 100_003
+    check_sort(gen, dev, 0, 0, 1, x=packed.lanes_from_numpy(
+        np.full((3, m), 77, np.uint32), dev))     # all equal: stability
+    check_sort(gen, dev, 0, 0, 1, x=packed.full_pad(m, 2, dev))   # all PAD
+    x = torch.randint(0, 9, (4, 1 << 20), generator=gen, device=dev,
+                      dtype=torch.int32)
+    x, _ = merge.sort_packed_plain(x)
+    check_sort(gen, dev, 0, 0, 2, x=x)                             # sorted
+    check_sort(gen, dev, 0, 0, 2, x=x.flip(1).contiguous())      # reversed
+    log("sort_packed edge cases (N = 0, 1, 2, leaf - 1, leaf, leaf + 1, "
+        "5 runs with a lone trailing one, 2^20 + 13, all keys equal, all "
+        "PAD, sorted and reversed with duplicates; 1-2 payloads): "
+        "bit-exact")
+    return summary
+
+
 def phase_kernels(dev):
     import torch
     from metagraph_tpu_torch.common import packed
@@ -218,6 +304,7 @@ def phase_kernels(dev):
     check_merge(gen, dev, 0, 0, 2, a=dup_a, b=dup_b)             # duplicates
     log("edge cases (N off the block, capacity < count and > N, zero-width "
         "sides, all-PAD, heavy duplicates): bit-exact")
+    summary["sort_packed"] = phase_sort(gen, dev)
     summary["pallas_dp"] = phase_align_dp(dev)
     return summary
 
@@ -301,20 +388,32 @@ def phase_align_dp(dev):
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
-def gold_real_edges(codes, K, canonical):
-    """numpy count of the distinct k-mers (canonical closure: both
-    orientations, palindromes once)."""
-    c = codes.astype(np.uint64) - np.uint64(1)           # ACGT -> 0..3
+def fwd_kmer_ints(codes, K):
+    """2-bit k-mer integers (ACGT -> 0..3, first char most significant)
+    of every window of an ACGT code array."""
+    c = codes.astype(np.uint64) - np.uint64(1)
     nw = len(c) - K + 1
     fwd = np.zeros(nw, np.uint64)
     for j in range(K):
         fwd = (fwd << np.uint64(2)) | c[j:j + nw]
-    if not canonical:
+    return fwd
+
+
+def gold_real_edges(codes, K, mode):
+    """numpy count of the distinct k-mers: basic all, primary the
+    canonical forms, canonical the closure (both orientations,
+    palindromes once)."""
+    c = codes.astype(np.uint64) - np.uint64(1)
+    fwd = fwd_kmer_ints(codes, K)
+    if mode == "basic":
         return len(np.unique(fwd))
+    nw = len(c) - K + 1
     rc = np.zeros(nw, np.uint64)
     for j in range(K - 1, -1, -1):
         rc = (rc << np.uint64(2)) | (np.uint64(3) - c[j:j + nw])
     canon = np.unique(np.minimum(fwd, rc))
+    if mode == "primary":
+        return len(canon)
     rc_canon = np.zeros_like(canon)
     x = canon.copy()
     for _ in range(K):
@@ -325,15 +424,16 @@ def gold_real_edges(codes, K, canonical):
     return 2 * len(canon) - pal
 
 
-def check_graph(boss, codes, K, canonical):
+def check_graph(boss, codes, K, mode):
     import torch
     from metagraph_tpu_torch.common import packed
     from metagraph_tpu_torch.kmer import packing
     lanes = boss.edge_lanes
     real = int((~packing.contains_sentinel(lanes, K, 4)).sum())
-    gold = gold_real_edges(codes, K, canonical)
+    gold = gold_real_edges(codes, K, mode)
     if real != gold:
-        raise AssertionError(f"k={K}: {real} real edges, numpy gold {gold}")
+        raise AssertionError(f"k={K} {mode}: {real} real edges, numpy gold "
+                             f"{gold}")
     if not bool(torch.all(packed.lt(lanes[:, :-1], lanes[:, 1:]))):
         raise AssertionError(f"k={K}: edge_lanes not strictly increasing")
     return real
@@ -361,6 +461,7 @@ def zero_launches():
     from metagraph_tpu_torch.common import merge
     merge.partition_launches = 0
     merge.merge_launches = 0
+    merge.sort_launches = 0
     pallas_dp.dp_launches = 0
 
 
@@ -369,7 +470,17 @@ def read_launches():
     from metagraph_tpu_torch.common import merge
     return {"partition_compact": merge.partition_launches,
             "merge_sorted": merge.merge_launches,
+            "sort_packed": merge.sort_launches,
             "pallas_dp": pallas_dp.dp_launches}
+
+
+BUILD_KERNELS = ("partition_compact", "merge_sorted", "sort_packed")
+
+
+def check_launched(launches, names, what):
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched by {what}")
 
 
 def phase_main_path(dev):
@@ -389,7 +500,7 @@ def phase_main_path(dev):
         torch.cuda.reset_peak_memory_stats()
         boss, warm = timed_build(codes, K, mode, dev)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        real = check_graph(boss, codes, K, mode == "canonical")
+        real = check_graph(boss, codes, K, mode)
         rate = (N_CODES - K + 1) / warm
         log(f"build k={K} {mode} 2^25 codes: {boss.num_edges} edges, "
             f"{real} real = numpy gold; cold {cold:.3f} s, warm "
@@ -426,9 +537,7 @@ def phase_main_path(dev):
     got = bq.get_labels_batch(reads, 0.7)
     dt = time.time() - t0
     launches = read_launches()
-    for name in ("partition_compact", "merge_sorted"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched by the build path")
+    check_launched(launches, BUILD_KERNELS, "the build path")
     log(f"launch counts over the build path: {launches}")
     bad = [i for i, r in enumerate(which) if labels[r] not in got[i]]
     if bad:
@@ -630,10 +739,180 @@ def check_align_cuda_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: primary mode (the sort-based finish) and CanonicalDbg
+# ---------------------------------------------------------------------------
+
+def revcomp(seq: bytes) -> bytes:
+    return seq.translate(bytes.maketrans(b"ACGT", b"TGCA"))[::-1]
+
+
+def same_boss(a, b, what, names=("W", "last", "F", "NF", "weights",
+                                  "edge_lanes")):
+    import torch
+    for name in names:
+        x, y = getattr(a, name).cpu(), getattr(b, name).cpu()
+        if x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def phase_primary(dev):
+    """build_boss_from_codes(mode="primary") on the 2^25 codes at k = 31,
+    then annotation and queries through CanonicalDbg; returns the build's
+    launch counts."""
+    import torch
+    from metagraph_tpu_torch.engine.annotated_dbg import (
+        AnnotatedDbg, BatchQuery, annotate_sequences)
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.canonical import CanonicalDbg
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    rng = np.random.default_rng(SEED)
+    codes = rng.integers(1, 5, N_CODES).astype(np.uint8)
+    K = 31
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    boss = build_boss_from_codes(codes, K, mode="primary", device=dev)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = read_launches()
+    check_launched(launches, BUILD_KERNELS, "the primary build")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    real = check_graph(boss, codes, K, "primary")
+    log(f"build k=31 primary 2^25 codes: {boss.num_edges} edges, {real} "
+        f"real = numpy gold (distinct canonical forms); {dt:.3f} s (first "
+        f"primary build of the run) = {(N_CODES - K + 1) / dt / 1e6:.2f} M "
+        f"k-mers/s; peak device memory {peak:.1f} GiB; launches {launches}")
+
+    graph = CanonicalDbg(base=DbgSuccinct.from_boss(boss, mode="primary"))
+    # annotation is host-bound per char: 100 records of 2^15 codes
+    records = split_records(codes[:100 << 15], 100)
+    labels = [f"rec_{i}" for i in range(len(records))]
+    t0 = time.time()
+    ann = annotate_sequences(graph, [(s, [lab]) for s, lab in
+                                     zip(records, labels)]).finalize()
+    torch.cuda.synchronize()
+    log(f"annotate through CanonicalDbg: {len(records)} records, "
+        f"{ann.matrix.nnz} relations over {graph.num_anno_rows()} rows in "
+        f"{time.time() - t0:.2f} s")
+    n_reads, rl = 1 << 13, 100
+    which = rng.integers(0, len(records), n_reads)
+    reads = []
+    for r in which:
+        off = int(rng.integers(0, len(records[r]) - rl + 1))
+        reads.append(records[r][off:off + rl])
+    reads += [revcomp(r) for r in reads]
+    bq = BatchQuery(AnnotatedDbg(graph=graph, annotation=ann))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = bq.get_labels_batch(reads, 0.7)
+    dt = time.time() - t0
+    bad = [i for i in range(len(reads)) if labels[which[i % n_reads]]
+           not in got[i]]
+    if bad:
+        raise AssertionError(f"primary query: {len(bad)} reads miss their "
+                             f"label, e.g. read {bad[0]}: {got[bad[0]]}")
+    log(f"query through CanonicalDbg: {n_reads} reads of {rl} bp and their "
+        f"reverse complements in {dt:.3f} s = {len(reads) / dt:.0f} reads/s;"
+        f" every read and reverse complement carries its record's label")
+    del graph, boss, ann, bq
+    torch.cuda.empty_cache()
+
+    small = np.random.default_rng(SEED + 1).integers(
+        1, 5, 1 << 16).astype(np.uint8)
+    small[rng.integers(0, len(small), 200)] = 255            # read breaks
+    a, b = (build_boss_from_codes(small, K, mode="primary", bits_per_count=8,
+                                  device=d) for d in (dev, "cpu"))
+    same_boss(a, b, "2^16 codes k=31 primary, CUDA against CPU")
+    log("primary build at 2^16 codes: CUDA W, last, F, NF, weights, "
+        "edge_lanes equal the CPU build")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: a KMC database (pre-counted k-mers, _sort_unique_stage)
+# ---------------------------------------------------------------------------
+
+def write_kmc2(base, ints, counts, k, p=4, sig_len=5):
+    """Write a KMC2 database (one signature bin, forward strand only) of
+    2-bit k-mer integers (first char most significant) with their counts
+    (< 2^16), in the layout ``seqio/kmc.py`` reads."""
+    import struct
+    order = np.argsort(ints, kind="stable")
+    ints, counts = ints[order], counts[order]
+    n = len(ints)
+    s_len, counter_size = k - p, 2
+    s_bytes = (s_len + 3) // 4
+    lut = np.searchsorted((ints >> np.uint64(2 * s_len)).astype(np.int64),
+                          np.arange(4 ** p))
+    # the suffix chars, first char in the top bits of the first byte
+    suf = ((ints & np.uint64((1 << (2 * s_len)) - 1))
+           << np.uint64(8 * s_bytes - 2 * s_len))
+    recs = np.zeros((n, s_bytes + counter_size), np.uint8)
+    for b in range(s_bytes):
+        recs[:, b] = (suf >> np.uint64(8 * (s_bytes - 1 - b))) & np.uint64(255)
+    for b in range(counter_size):
+        recs[:, s_bytes + b] = (counts >> (8 * b)) & 255
+    hdr = struct.pack("<9I", k, 0, counter_size, p, sig_len, 1,
+                      1_000_000_000, n & 0xFFFFFFFF, n >> 32)
+    hdr += bytes([1])                                   # forward strand
+    hdr += b"\0" * (64 - len(hdr) - 4) + struct.pack("<I", 0x200)
+    sig_map = np.zeros(4 ** sig_len + 1, np.uint32)
+    with open(base + ".kmc_pre", "wb") as f:
+        f.write(b"KMCP" + lut.astype("<u8").tobytes() + sig_map.tobytes()
+                + hdr + struct.pack("<I", len(hdr)) + b"KMCP")
+    with open(base + ".kmc_suf", "wb") as f:
+        f.write(b"KMCS" + recs.tobytes() + b"KMCS")
+    return base
+
+
+def phase_kmc(dev):
+    """The forward k = 31 k-mers of the first 2^24 codes with their numpy
+    counts as a KMC2 database, read by seqio/kmc.py and built by
+    collect_counted_kmers + build_boss_from_kmers (basic, 8-bit counts);
+    the graph must equal build_boss_from_codes on the same codes."""
+    import torch
+    from metagraph_tpu_torch.graph.boss_construct import (
+        build_boss_from_codes, build_boss_from_kmers, collect_counted_kmers)
+    from metagraph_tpu_torch.seqio.kmc import read_kmers
+    K = 31
+    codes = np.random.default_rng(SEED).integers(
+        1, 5, N_CODES).astype(np.uint8)[:1 << 24]
+    ints, counts = np.unique(fwd_kmer_ints(codes, K), return_counts=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = write_kmc2(os.path.join(tmp, "db"), ints, counts, K)
+        t0 = time.time()
+        chars, kcounts, hdr = read_kmers(base)
+        t_read = time.time() - t0
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lanes, cnts, n = collect_counted_kmers(chars, kcounts, K, device=dev)
+    boss = build_boss_from_kmers(lanes, cnts, n, K, bits_per_count=8)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = read_launches()
+    check_launched(launches, BUILD_KERNELS, "the KMC build")
+    ref = build_boss_from_codes(codes, K, mode="basic", bits_per_count=8,
+                                device=dev)
+    same_boss(boss, ref, "KMC build against the build from codes")
+    log(f"KMC: {hdr.total_kmers} k-mers (k=31, 2^24 codes) read in "
+        f"{t_read:.2f} s; collect_counted_kmers + build_boss_from_kmers "
+        f"{dt:.3f} s; {boss.num_edges} edges; W, last, F, NF, weights, "
+        f"edge_lanes equal build_boss_from_codes on the codes; launches "
+        f"{launches}")
+    del boss, ref, lanes, cnts
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the CLI
 # ---------------------------------------------------------------------------
 
 def phase_cli(device):
+    from metagraph_tpu_torch.graph.io import load_graph
     rng = np.random.default_rng(SEED + 2)
     letters = np.frombuffer(b"ACGT", np.uint8)
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
@@ -690,10 +969,43 @@ def phase_cli(device):
                 (2 * len(seqs[r["name"]]), f"{len(seqs[r['name']])}=",
                  seqs[r["name"]]) for r in recs):
             raise AssertionError(f"CLI align --json output wrong: {recs[:2]}")
+        # primary: build, stats, annotate, query the records and their
+        # reverse complements through the wrapper
+        gp = os.path.join(tmp, "gp")
+        run("build", "-k", "31", "--mode", "primary", "-o", gp, fa)
+        if "mode: primary" not in run("stats", gp):
+            raise AssertionError("CLI stats of the primary graph wrong")
+        run("annotate", "-i", gp, "--anno-header", fa)
+        both_fa = os.path.join(tmp, "both.fa")
+        with open(both_fa, "w") as f:
+            for name, seq in seqs.items():
+                f.write(f">{name}\n{seq}\n>{name}\n"
+                        f"{revcomp(seq.encode()).decode()}\n")
+        out = run("query", "-i", gp, "-a", gp + ".column.annodbg.npz",
+                  both_fa)
+        if out.splitlines() != [f"{i}\t{n}\t{n}" for i, n in
+                                enumerate(n for n in names for _ in "fr")]:
+            raise AssertionError(f"CLI query of the primary graph wrong:"
+                                 f" {out.splitlines()[:3]}")
+        # a KMC database of the records' k-mers with counts 1-3
+        acgt = np.frombuffer(b"ACGT", np.uint8)
+        ints = np.unique(np.concatenate([fwd_kmer_ints(np.searchsorted(
+            acgt, np.frombuffer(seq.encode(), np.uint8)) + 1, 31)
+            for seq in seqs.values()]))
+        counts = rng.integers(1, 4, len(ints))
+        db = write_kmc2(os.path.join(tmp, "db"), ints, counts, 31)
+        gk = os.path.join(tmp, "gk")
+        run("build", "-k", "31", "--min-count", "2", "-o", gk,
+            db + ".kmc_pre")
+        gold = int((counts >= 2).sum())
+        if load_graph(gk, device=device).num_nodes() != gold:
+            raise AssertionError(f"CLI build from KMC: not {gold} nodes")
     log(f"CLI build/annotate/query/query --align/align/align --json/stats "
         f"--device {device}: exit 0; each of {len(names)} records labelled "
         f"with its own name and aligned to its graph with score 2*len and "
-        f"CIGAR len=")
+        f"CIGAR len=; primary build/stats/annotate/query: every record and "
+        f"its reverse complement labelled with its name; build from a KMC "
+        f"database --min-count 2: {gold} nodes = numpy gold")
 
 
 def main():
@@ -713,14 +1025,22 @@ def main():
         f"{torch.version.cuda})")
     log(smi)
 
-    t0 = time.time()
+    t_start = t0 = time.time()
     _cuda.lib()
     log(f"kernels built with nvcc from {_cuda.CSRC} and loaded in "
         f"{time.time() - t0:.2f} s")
 
-    summary = phase_kernels(dev)
-    build_launches, (align_launches, _), _ = phase_main_path(dev)
-    phase_cli("cuda")
+    def timed(phase, *args):
+        t = time.time()
+        out = phase(*args)
+        log(f"{phase.__name__}: {time.time() - t:.1f} s")
+        return out
+
+    summary = timed(phase_kernels, dev)
+    build_launches, (align_launches, _), _ = timed(phase_main_path, dev)
+    primary_launches = timed(phase_primary, dev)
+    timed(phase_kmc, dev)
+    timed(phase_cli, "cuda")
 
     kernels = []
     for kname, src, rep, launches in (
@@ -728,6 +1048,8 @@ def main():
              "metagraph_tpu/common/merge.py:634", build_launches),
             ("merge_sorted", "metagraph_tpu_torch/csrc/merge.cu",
              "metagraph_tpu/common/merge.py:333", build_launches),
+            ("sort_packed", "metagraph_tpu_torch/csrc/sort.cu",
+             "metagraph_tpu/common/merge.py:450", primary_launches),
             ("pallas_dp", "metagraph_tpu_torch/csrc/align_dp.cu",
              "metagraph_tpu/align/pallas_dp.py:185", align_launches)):
         err, ms, plain, lib_ms, (bound_ms, bound_by) = summary[kname]
@@ -736,6 +1058,7 @@ def main():
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": lib_ms})
+    log(f"chip_smoke total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
 """The ``metagraph`` CLI of the port: build, annotate, query, align and
-stats.
+stats, on basic, canonical and primary DNA graphs.
 
 PyTorch counterpart of ``metagraph_tpu/cli/main.py`` for the subset the
 port covers; stdout is byte for byte that of the JAX CLI. Every command
@@ -8,6 +8,8 @@ the kernels). Any other subcommand or flag exits non-zero with "not yet
 ported".
 
     python -m metagraph_tpu_torch.cli.main build -k 31 -o graph reads.fa
+    python -m metagraph_tpu_torch.cli.main build -k 31 --mode primary -o g reads.fa
+    python -m metagraph_tpu_torch.cli.main build -k 31 --min-count 2 -o g db.kmc_pre
     python -m metagraph_tpu_torch.cli.main annotate -i graph --anno-header reads.fa
     python -m metagraph_tpu_torch.cli.main query -i graph -a graph.column.annodbg.npz q.fa
     python -m metagraph_tpu_torch.cli.main align -i graph reads.fa
@@ -37,6 +39,17 @@ def log(msg: str):
     print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
 
 
+def _load_graph(path, device, wrap_primary: bool = True):
+    """Load a graph; a primary graph comes wrapped in ``CanonicalDbg``
+    unless ``wrap_primary`` is false."""
+    from ..graph.io import load_graph
+    g = load_graph(path, device=device)
+    if wrap_primary and g.mode == "primary":
+        from ..graph.canonical import CanonicalDbg
+        return CanonicalDbg(base=g)
+    return g
+
+
 def cmd_build(args):
     from ..graph import io as graph_io
     from ..graph.boss_construct import build_boss_from_codes
@@ -44,23 +57,46 @@ def cmd_build(args):
     from ..kmer.alphabets import DNA
     from ..seqio.fasta import read_and_encode
 
-    if args.mode == "primary":
-        raise SystemExit("build: --mode primary is not yet ported")
     if len(args.fnames) != 1:
         raise SystemExit("build: exactly one input file (more is not yet "
                          "ported)")
-    if args.fnames[0].endswith((".kmc_pre", ".kmc_suf", ".vcf", ".vcf.gz")):
-        raise SystemExit("build: KMC and VCF input is not yet ported")
-    codes = read_and_encode(args.fnames[0], DNA)
-    log(f"Encoded {len(codes) / 1e6:.1f} M chars")
+    bits_per_count = args.count_width if args.count_kmers else 0
     t0 = time.time()
-    boss = build_boss_from_codes(
-        codes, args.k, alphabet=DNA, mode=args.mode,
-        bits_per_count=args.count_width if args.count_kmers else 0,
-        device=args.device)
+    if args.fnames[0].endswith((".kmc_pre", ".kmc_suf")):
+        boss = _build_from_kmc(args, bits_per_count)
+    elif args.fnames[0].endswith((".vcf", ".vcf.gz")):
+        raise SystemExit("build: VCF input is not yet ported")
+    else:
+        codes = read_and_encode(args.fnames[0], DNA)
+        log(f"Encoded {len(codes) / 1e6:.1f} M chars")
+        t0 = time.time()
+        boss = build_boss_from_codes(codes, args.k, alphabet=DNA,
+                                     mode=args.mode,
+                                     bits_per_count=bits_per_count,
+                                     device=args.device)
     log(f"Graph construction: {time.time() - t0:.2f} s")
     graph = DbgSuccinct.from_boss(boss, DNA, args.mode)
     log(f"Serialized to {graph_io.save_graph(args.outfile_base, graph)}")
+
+
+def _build_from_kmc(args, bits_per_count: int):
+    """A KMC database's k-mers, count-filtered, as a graph. Canonical and
+    primary both build the canonical closure, as the JAX CLI does; the
+    graph is then labelled with the requested mode."""
+    from ..graph.boss_construct import (build_boss_from_kmers,
+                                        collect_counted_kmers)
+    from ..seqio.kmc import read_kmers
+    chars, counts, hdr = read_kmers(args.fnames[0], min_count=args.min_count,
+                                    max_count=args.max_count)
+    log(f"KMC database: {len(chars)} k-mers, k={hdr.kmer_length}")
+    if args.k != hdr.kmer_length:
+        raise SystemExit(f"build: -k {args.k} != KMC k {hdr.kmer_length}")
+    mode = "basic" if args.mode == "basic" else "canonical"
+    lanes, cnts, n = collect_counted_kmers(
+        chars, counts, args.k, canonical=mode == "canonical",
+        device=args.device)
+    return build_boss_from_kmers(lanes, cnts, n, args.k, mode=mode,
+                                 bits_per_count=bits_per_count)
 
 
 def _is_annotation_file(path) -> bool:
@@ -89,14 +125,12 @@ def _print_annotation_stats(f, device):
 
 
 def cmd_stats(args):
-    from ..graph.io import index_bytes, load_graph
+    from ..graph.io import index_bytes
     for f in args.fnames:
         if _is_annotation_file(f):
             _print_annotation_stats(f, args.device)
             continue
-        g = load_graph(f, device=args.device)
-        if g.mode not in ("basic", "canonical"):
-            raise SystemExit(f"stats: {g.mode} graphs are not yet ported")
+        g = _load_graph(f, args.device, wrap_primary=False)
         log(f"Statistics for graph '{f}'")
         print("====================== GRAPH STATS =====================")
         print(f"k: {g.k}")
@@ -135,10 +169,9 @@ def cmd_stats(args):
 
 def cmd_annotate(args):
     from ..engine.annotated_dbg import annotate_sequences
-    from ..graph.io import load_graph
     from ..seqio.fasta import parse_records
 
-    g = load_graph(args.infile_base, device=args.device)
+    g = _load_graph(args.infile_base, args.device)
     items = []
     for f in args.fnames:
         for rec in parse_records(f):
@@ -161,14 +194,17 @@ def cmd_annotate(args):
 def cmd_query(args):
     from ..anno.annotator import Annotation
     from ..engine.annotated_dbg import AnnotatedDbg, BatchQuery
-    from ..graph.io import load_graph
+    from ..graph.canonical import CanonicalDbg
     from ..seqio.fasta import BatchFeeder, iter_batches
 
-    g = load_graph(args.infile_base, device=args.device)
+    g = _load_graph(args.infile_base, args.device)
     ann = Annotation.load(args.annotation, device=args.device)
     bq = BatchQuery(AnnotatedDbg(graph=g, annotation=ann))
     aligner = None
     if args.align or args.batch_align:
+        if isinstance(g, CanonicalDbg):
+            raise SystemExit("query --align: primary graphs are not yet "
+                             "ported")
         from ..align.aligner import Aligner, AlignerConfig
         aligner = Aligner(g, AlignerConfig(
             min_exact_match=args.align_min_exact_match))
@@ -218,6 +254,8 @@ def cmd_align(args):
         raise SystemExit("align: the GFA path mode (-o *.gfa) is not yet "
                          "ported")
     g = load_graph(args.infile_base, device=args.device)
+    if g.mode == "primary":
+        raise SystemExit("align: primary graphs are not yet ported")
     cfg = AlignerConfig(
         match_score=args.match_score,
         mm_transition_penalty=args.mm_transition_penalty,
@@ -324,6 +362,10 @@ def build_parser() -> argparse.ArgumentParser:
                     default="basic")
     sp.add_argument("--count-kmers", action="store_true")
     sp.add_argument("--count-width", type=int, default=8)
+    sp.add_argument("--min-count", type=int, default=1,
+                    help="KMC input: drop k-mers counted fewer times")
+    sp.add_argument("--max-count", type=int, default=None,
+                    help="KMC input: drop k-mers counted more times")
     sp.add_argument("-o", "--outfile-base", default="graph")
     sp.add_argument("fnames", nargs="*")
 

@@ -6,8 +6,8 @@ shared library of its own with a plain C interface, all sources at once
 Nothing happens at import: the CPU tests import every module, and a
 machine without ``nvcc`` never builds. The libraries land in
 ``metagraph_tpu_torch/_build/`` under names that carry a hash of the
-source and flags, so an edited source rebuilds and an unchanged one
-loads the cached file.
+source, the shared headers and the flags, so an edited source rebuilds
+and an unchanged one loads the cached file.
 """
 
 from __future__ import annotations
@@ -41,6 +41,11 @@ SOURCES = {
         "mg_merge": ([_P, _LL, _P, _LL, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                       _P, _P], _I),
     },
+    "sort.cu": {
+        "mg_sort_leaf": ([], _I),
+        "mg_sort": ([_P, _LL, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
+                    _I),
+    },
     "align_dp.cu": {
         "mg_align_dp_scratch_ints": ([_LL, _I], _LL),
         "mg_align_dp": ([_P, _P, _P, _P, _LL, _I, _I, _P, _I, _I, _I, _I,
@@ -58,9 +63,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
+    """The library's path, named by a hash of the flags, the source and
+    the shared headers (``*.cuh``) it may include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC, name), "rb") as f:
-        h.update(name.encode() + b"\0" + f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for part in [name] + headers:
+        with open(os.path.join(CSRC, part), "rb") as f:
+            h.update(part.encode() + b"\0" + f.read())
     stem = os.path.splitext(name)[0]
     return os.path.join(BUILD_DIR, f"libmg_{stem}_{h.hexdigest()[:16]}.so")
 

@@ -1,5 +1,5 @@
-"""Linear-time passes over sorted packed lanes: the two kernels of the
-construction path, each beside its plain PyTorch version.
+"""The three kernels of the construction path over packed lanes, each
+beside its plain PyTorch version.
 
 PyTorch counterpart of ``metagraph_tpu/common/merge.py``:
 
@@ -11,12 +11,18 @@ PyTorch counterpart of ``metagraph_tpu/common/merge.py``:
     ``csrc/merge.cu``; plain version a stable sort of the concatenation.
     Both versions are stable with A first on ties, where the TPU's
     bitonic kernel was not.
+  * ``sort_packed`` — full sort of lanes with payloads (replaces the JAX
+    ``sort_packed``: leaf sorts, then segmented ``_merge_call`` levels);
+    hand-written CUDA in ``csrc/sort.cu`` (bitonic leaf tiles, then
+    merge levels); plain version ``packed.sort``. Both are stable, where
+    the TPU's was not, so the two agree bit for bit, payloads included.
 
 Each wrapper dispatches on the device of the tensor it is given and on
 nothing else: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel (or raises). ``partition_launches`` and
 ``merge_launches`` count kernel launches, one per wrapper call that
-launched, so a run can show that its main path went through them.
+launched, so a run can show that its main path went through them;
+``sort_launches`` counts ``sort_packed`` the same way.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from . import _cuda, packed
 
 partition_launches = 0
 merge_launches = 0
+sort_launches = 0
 
 _MAX_LANES = 8
 _MAX_EXTRAS = 2
@@ -181,3 +188,52 @@ def merge_sorted(a: torch.Tensor, b: torch.Tensor,
     if a.device.type != "cuda":
         raise ValueError(f"merge_sorted: no kernel for {a.device}")
     return _merge_cuda(a, b, a_extras, b_extras)
+
+
+# ---------------------------------------------------------------------------
+# sort_packed
+# ---------------------------------------------------------------------------
+
+def sort_packed_plain(x: torch.Tensor, *extras: torch.Tensor):
+    """The plain version: ``packed.sort`` (stable ``torch.sort`` passes
+    over fused int64 keys)."""
+    return packed.sort(x, *extras)
+
+
+def _sort_cuda(x, extras):
+    global sort_launches
+    _check_cuda_args("sort_packed", [x], extras, len(extras))
+    L, n = x.shape
+    if any(e.shape != (n,) for e in extras):
+        raise TypeError("sort_packed: payloads must match the key count")
+    dev = x.device
+    x = x.contiguous()
+    extras = [e.contiguous() for e in extras]
+    lib = _cuda.lib()
+    out = torch.empty((L, n), dtype=packed.LANE_DTYPE, device=dev)
+    eouts = [torch.empty_like(e) for e in extras]
+    # ping-pong scratch for the merge levels (none for a single leaf)
+    levels = n > lib.mg_sort_leaf()
+    tmp = torch.empty_like(out) if levels else None
+    etmps = [torch.empty_like(e) for e in extras] if levels else []
+    with torch.cuda.device(dev):
+        status = lib.mg_sort(
+            x.data_ptr(), n, L, *_pad_ptrs(extras), len(extras),
+            out.data_ptr(), *_pad_ptrs(eouts), _ptr(tmp), *_pad_ptrs(etmps),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.check(status, "sort_packed")
+    if n:
+        sort_launches += 1
+    return out, tuple(eouts)
+
+
+def sort_packed(x: torch.Tensor, *extras: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Stable ascending sort of (L, N) lanes (lane 0 most significant,
+    unsigned; PAD last) with 0-2 four-byte payloads riding along.
+    Returns (lanes, extras); equal keys keep their input order."""
+    if x.device.type == "cpu":
+        return sort_packed_plain(x, *extras)
+    if x.device.type != "cuda":
+        raise ValueError(f"sort_packed: no kernel for {x.device}")
+    return _sort_cuda(x, extras)

@@ -13,36 +13,19 @@
 // element. The design moves each element through the SM once:
 //   1. splits: one thread per output tile boundary runs the merge-path
 //      diagonal binary search (A first on ties) over device memory;
-//   2. merge: one block per output tile of kTile elements. A tile fed by
-//      one side only (most tiles when one input is far smaller, as when
-//      the few dummy edges merge into the real edges) is a coalesced
-//      copy. Otherwise the block stages its A and B windows' keys in
-//      shared memory, each thread finds its own sub-diagonal by binary
-//      search and merges kItems outputs sequentially, recording each
-//      output's source slot; the block then writes lanes and payloads
-//      back coalesced.
+//   2. merge: one block per output tile of kMergeTile elements
+//      (merge_tile.cuh, shared with the merge levels of sort.cu).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "merge_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 4;
-constexpr int kTile = kThreads * kItems;
-constexpr int kMaxLanes = 8;
-
-// a[:, ia] <= b[:, ib] over L lanes (lane stride sa / sb)
-__device__ __forceinline__ bool le_lanes(const uint32_t* a, long long sa,
-                                         long long ia, const uint32_t* b,
-                                         long long sb, long long ib, int L) {
-  for (int j = 0; j < L; ++j) {
-    const uint32_t x = a[j * sa + ia];
-    const uint32_t y = b[j * sb + ib];
-    if (x != y) return x < y;
-  }
-  return true;
-}
+using mg::kMaxLanes;
+using mg::kMergeThreads;
+using mg::kMergeTile;
 
 __global__ void splits_kernel(const uint32_t* __restrict__ a, long long na,
                               const uint32_t* __restrict__ b, long long nb,
@@ -50,18 +33,8 @@ __global__ void splits_kernel(const uint32_t* __restrict__ a, long long na,
                               long long* __restrict__ splits) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t > g) return;
-  const long long d = min(t * kTile, na + nb);
-  long long lo = max(0LL, d - nb);
-  long long hi = min(d, na);
-  while (lo < hi) {
-    const long long m = (lo + hi) >> 1;
-    if (le_lanes(a, na, m, b, nb, d - m - 1, L)) {
-      lo = m + 1;
-    } else {
-      hi = m;
-    }
-  }
-  splits[t] = lo;
+  const long long d = min(t * kMergeTile, na + nb);
+  splits[t] = mg::merge_path(a, na, 0, na, b, nb, 0, nb, d, L);
 }
 
 __global__ void merge_kernel(const uint32_t* __restrict__ a, long long na,
@@ -74,79 +47,21 @@ __global__ void merge_kernel(const uint32_t* __restrict__ a, long long na,
                              uint32_t* __restrict__ oe0,
                              uint32_t* __restrict__ oe1,
                              const long long* __restrict__ splits) {
-  extern __shared__ uint32_t smem[];          // [L][kTile] keys + kTile slots
-  uint32_t* keys = smem;
-  int* src = (int*)(smem + L * kTile);
+  extern __shared__ uint32_t smem[];    // [L][kMergeTile] keys + slots
   const long long ntot = na + nb;
-  const long long d0 = (long long)blockIdx.x * kTile;
-  const long long d1 = min(d0 + kTile, ntot);
+  const long long d0 = (long long)blockIdx.x * kMergeTile;
+  const long long d1 = min(d0 + kMergeTile, ntot);
   const long long a0 = splits[blockIdx.x];
-  const long long a1 = splits[blockIdx.x + 1];
-  const long long b0 = d0 - a0;
-  const int cnt = (int)(d1 - d0);
-  const int na_t = (int)(a1 - a0);
-  const int nb_t = cnt - na_t;
-
-  if (nb_t == 0 || na_t == 0) {               // one-sided tile: a copy
-    const bool from_a = nb_t == 0;
-    const uint32_t* s = from_a ? a : b;
-    const long long ss = from_a ? na : nb;
-    const long long s0 = from_a ? a0 : b0;
-    for (int p = threadIdx.x; p < cnt; p += kThreads) {
-      for (int j = 0; j < L; ++j) out[j * ntot + d0 + p] = s[j * ss + s0 + p];
-      if (n_extra > 0) oe0[d0 + p] = (from_a ? ea0 : eb0)[s0 + p];
-      if (n_extra > 1) oe1[d0 + p] = (from_a ? ea1 : eb1)[s0 + p];
-    }
-    return;
-  }
-
-  // stage the windows: slots [0, na_t) hold A, [na_t, cnt) hold B
-  for (int p = threadIdx.x; p < cnt; p += kThreads) {
-    for (int j = 0; j < L; ++j) {
-      keys[j * kTile + p] =
-          p < na_t ? a[j * na + a0 + p] : b[j * nb + b0 + (p - na_t)];
-    }
-  }
-  __syncthreads();
-
-  const int diag = min((int)threadIdx.x * kItems, cnt);
-  int lo = max(0, diag - nb_t);
-  int hi = min(diag, na_t);
-  while (lo < hi) {
-    const int m = (lo + hi) >> 1;
-    if (le_lanes(keys, kTile, m, keys, kTile, na_t + diag - m - 1, L)) {
-      lo = m + 1;
-    } else {
-      hi = m;
-    }
-  }
-  int ai = lo;
-  int bi = diag - lo;
-  for (int k = 0; k < kItems && diag + k < cnt; ++k) {
-    const bool take_a =
-        bi >= nb_t ||
-        (ai < na_t && le_lanes(keys, kTile, ai, keys, kTile, na_t + bi, L));
-    src[diag + k] = take_a ? ai++ : na_t + bi++;
-  }
-  __syncthreads();
-
-  for (int p = threadIdx.x; p < cnt; p += kThreads) {
-    const int s = src[p];
-    for (int j = 0; j < L; ++j) out[j * ntot + d0 + p] = keys[j * kTile + s];
-    if (n_extra > 0) {
-      oe0[d0 + p] = s < na_t ? ea0[a0 + s] : eb0[b0 + (s - na_t)];
-    }
-    if (n_extra > 1) {
-      oe1[d0 + p] = s < na_t ? ea1[a0 + s] : eb1[b0 + (s - na_t)];
-    }
-  }
+  const int na_t = (int)(splits[blockIdx.x + 1] - a0);
+  mg::merge_tile(a, na, a0, na_t, b, nb, d0 - a0, (int)(d1 - d0) - na_t, L,
+                 ea0, ea1, eb0, eb1, n_extra, out, ntot, d0, oe0, oe1, smem);
 }
 
 }  // namespace
 
 // Output elements per block: the wrapper sizes the splits scratch as
 // ceil((na + nb) / tile) + 1 int64s.
-extern "C" int mg_merge_tile() { return kTile; }
+extern "C" int mg_merge_tile() { return kMergeTile; }
 
 // a (L, na) and b (L, nb) sorted, with 0-2 payloads (na,)/(nb,) each;
 // out (L, na+nb) and payloads (na+nb,). Returns cudaGetLastError().
@@ -161,13 +76,14 @@ extern "C" int mg_merge(const void* a, long long na, const void* b,
   const long long ntot = na + nb;
   if (ntot == 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  const long long g = (ntot + kTile - 1) / kTile;
+  const long long g = (ntot + kMergeTile - 1) / kMergeTile;
   long long* sp = (long long*)splits;
-  const unsigned split_blocks = (unsigned)((g + 1 + kThreads - 1) / kThreads);
-  splits_kernel<<<split_blocks, kThreads, 0, s>>>(
+  const unsigned split_blocks =
+      (unsigned)((g + 1 + kMergeThreads - 1) / kMergeThreads);
+  splits_kernel<<<split_blocks, kMergeThreads, 0, s>>>(
       (const uint32_t*)a, na, (const uint32_t*)b, nb, L, g, sp);
-  const size_t shmem = (size_t)(L + 1) * kTile * sizeof(uint32_t);
-  merge_kernel<<<(unsigned)g, kThreads, shmem, s>>>(
+  const size_t shmem = (size_t)(L + 1) * kMergeTile * sizeof(uint32_t);
+  merge_kernel<<<(unsigned)g, kMergeThreads, shmem, s>>>(
       (const uint32_t*)a, na, (const uint32_t*)b, nb, L,
       (const uint32_t*)ea0, (const uint32_t*)ea1, (const uint32_t*)eb0,
       (const uint32_t*)eb1, n_extra, (uint32_t*)out, (uint32_t*)oe0,

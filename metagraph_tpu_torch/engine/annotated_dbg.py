@@ -7,7 +7,8 @@ per-(read, label) k-mer counts come from one interval expand + one
 ``index_add_`` over ``read_id * num_labels + label`` keys. Selection
 semantics are the reference's:
 
-  * anno row = node - 1;
+  * anno row = node - 1 (``graph.node_to_anno_row``: on a primary graph
+    behind ``CanonicalDbg`` both orientations share the base node's row);
   * min_count = max(1, ceil(presence_ratio * num_windows));
   * get_labels: labels with count >= min_count, in label-code order;
   * get_top_labels: the same set with counts, sorted by (count desc,
@@ -60,7 +61,7 @@ class BatchQuery:
                                    np.uint8)])
         nodes = g.map_codes_to_nodes(
             torch.from_numpy(codes_np).to(g.device)).cpu().numpy()
-        rows_all = nodes.astype(np.int64) - 1
+        rows_all = np.where(nodes > 0, g.node_to_anno_row(nodes), -1)
         # window w belongs to read r iff it lies fully inside r's span;
         # reads are one separator byte apart
         rows, read_ids, wpr = [], [], []
@@ -160,13 +161,14 @@ def annotate_sequences(graph: DbgSuccinct,
                        annotator: Optional[ColumnAnnotator] = None,
                        with_counts: bool = False) -> ColumnAnnotator:
     """Build a column annotation from (sequence, labels) pairs: map each
-    sequence's windows to nodes and set its labels on every present row."""
+    sequence's windows to nodes and set its labels on every present row.
+    ``graph`` is a ``DbgSuccinct`` or a ``CanonicalDbg``."""
     if annotator is None:
-        annotator = ColumnAnnotator(num_rows=graph.num_nodes(),
+        annotator = ColumnAnnotator(num_rows=graph.num_anno_rows(),
                                     device=graph.device)
     for seq, labels in items:
         nodes = graph.map_to_nodes(seq)
-        rows = nodes[nodes > 0].astype(np.int64) - 1
+        rows = graph.node_to_anno_row(nodes[nodes > 0])
         if with_counts:
             uniq, cnt = np.unique(rows, return_counts=True)
             for label in labels:

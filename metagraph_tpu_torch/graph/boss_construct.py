@@ -1,26 +1,37 @@
 """BOSS construction: sorted packed k-mer sets on the device.
 
 PyTorch counterpart of ``metagraph_tpu/graph/boss_construct.py``, for
-the slice the single-shard DNA build runs (modes ``basic`` and
-``canonical``, with or without k-mer counts):
+the slice the single-shard DNA build runs (modes ``basic``,
+``canonical`` and ``primary``, with or without k-mer counts, from
+sequences or from pre-counted k-mers):
 
   collect     upload the uint8 codes; pack every window in the 2-bit
               domain, fold to canonical form, sort, dedupe and count
-              (``_sort_unique_ones_body``, partition kernel); gather the
-              dummy-edge candidates at the per-run boundary windows,
-              whose positions come from the invalid codes on the host
+              (``_sort_unique_ones_body``: sort and partition kernels);
+              for basic and canonical builds, gather the dummy-edge
+              candidates at the per-run boundary windows, whose positions
+              come from the invalid codes on the host. Pre-counted k-mers
+              (KMC) take ``collect_counted_kmers`` / ``_sort_unique_stage``
   rc closure  canonical mode: append the reverse complements
-              (``_add_rc_stage``, partition + merge kernels)
-  dummies     probe the candidates against the sorted real edges
-              (``_probe_dummies``), then the K-2 source levels
+              (``_add_rc_stage``: partition, sort and merge kernels)
+  dummies     with boundary candidates, probe them against the sorted
+              real edges (``_probe_dummies``); without (primary mode,
+              KMC input), derive them from all real edges by sorts and
+              membership merges (``_sink_candidates``,
+              ``_source_candidates``); then the K-2 source levels
               (``_levels_phase``)
-  emit        merge the dummies into the real edges (merge kernel) and
-              derive W / last / F / weights (``_emit_body``)
+  emit        sort the dummies (sort kernel), merge them into the real
+              edges (merge kernel) and derive W / last / F / weights
+              (``_emit_body``; the finish without candidates also drops
+              redundant sinks)
 
-Sizes are dynamic (PyTorch runs eagerly), so the JAX package's capacity
-classes, retry loops, staged large-input finish and host code packing
-are gone; counts stay device tensors and the host syncs twice: once for
-the number of distinct k-mers, once for the finish statistics.
+Primary mode keeps only the canonical form of each k-mer and builds the
+basic graph over those. Sizes are dynamic (PyTorch runs eagerly), so
+the JAX package's capacity classes, retry loops, staged large-input
+finish and host code packing are gone; counts stay device tensors and
+the host syncs only to size arrays: the collect's count, the dummy sets,
+each of the K-2 levels (so the dummy side holds no PAD) and the finish
+statistics.
 """
 
 from __future__ import annotations
@@ -40,7 +51,8 @@ from .boss import Boss, _build_lut
 
 MODE_BASIC = "basic"
 MODE_CANONICAL = "canonical"
-_PORTED_MODES = (MODE_BASIC, MODE_CANONICAL)
+MODE_PRIMARY = "primary"
+_PORTED_MODES = (MODE_BASIC, MODE_CANONICAL, MODE_PRIMARY)
 
 
 def _i32(v, dev) -> torch.Tensor:
@@ -70,11 +82,11 @@ def host_boundary_windows(inval_sorted: np.ndarray, n: int, K: int
     return (b[ok] - K).astype(np.int64), a[ok].astype(np.int64)
 
 
-def _collect_bounds(codes: torch.Tensor, end_pos: torch.Tensor,
-                    start_pos: torch.Tensor, K: int, B: int,
-                    canonical: bool, complement):
-    """Windows -> sorted unique k-mers + counts, plus the boundary dummy
-    candidates gathered at ``end_pos`` / ``start_pos``.
+def _collect(codes: torch.Tensor, K: int, B: int, canonical: bool,
+             complement, bound_pos=None):
+    """Windows -> sorted unique k-mers + counts, plus (when ``bound_pos``
+    = (end_pos, start_pos) is given) the boundary dummy candidates
+    gathered at those window positions.
 
     The big sort runs in the 2-BIT domain (chars stored as c-1): real
     k-mers never hold the sentinel, c -> c-1 is monotone, and for
@@ -92,12 +104,16 @@ def _collect_bounds(codes: torch.Tensor, end_pos: torch.Tensor,
     L2 = lanes2.shape[0]
     low = L2 - packed.num_lanes(K, 2)
 
-    def gather_nodes(pos, project):
-        return project(packed.expand2to4(lanes2[low:, pos], K))
+    bounds = None
+    if bound_pos is not None:
+        end_pos, start_pos = bound_pos
 
-    sink_cand = gather_nodes(
-        end_pos, lambda w: packing.node_key(packing.to_next(w, K, B, 0), B))
-    src_cand = gather_nodes(start_pos, lambda w: packing.node_key(w, B))
+        def gather_nodes(pos, project):
+            return project(packed.expand2to4(lanes2[low:, pos], K))
+
+        bounds = (gather_nodes(end_pos, lambda w: packing.node_key(
+                      packing.to_next(w, K, B, 0), B)),
+                  gather_nodes(start_pos, lambda w: packing.node_key(w, B)))
     lanes = torch.where(ok[None, :], lanes2, packed.PAD_LANE)
     count = torch.sum(ok, dtype=torch.int32)
     if canonical:
@@ -108,7 +124,7 @@ def _collect_bounds(codes: torch.Tensor, end_pos: torch.Tensor,
     ulanes2, ucounts, ucount = _sort_unique_ones_body(lanes, count)
     ulanes = packed.expand2to4(ulanes2[low:], K)
     # expansion garbles the PAD tail: restore it positionally
-    return _masked(ulanes, ucount), ucounts, ucount, (sink_cand, src_cand)
+    return _masked(ulanes, ucount), ucounts, ucount, bounds
 
 
 def _sort_unique_ones_body(lanes: torch.Tensor, count: torch.Tensor):
@@ -117,7 +133,7 @@ def _sort_unique_ones_body(lanes: torch.Tensor, count: torch.Tensor):
     differences of the compacted group-first positions."""
     cap = lanes.shape[1]
     dev = lanes.device
-    lanes_s, _ = packed.sort(lanes)
+    lanes_s, _ = pmerge.sort_packed(lanes)
     first = packed.neighbor_ne(lanes_s)
     umask = first & packed.valid_mask(cap, count)   # PADs sorted to the back
     excl = torch.arange(cap, dtype=torch.int32, device=dev)
@@ -132,34 +148,92 @@ def _sort_unique_ones_body(lanes: torch.Tensor, count: torch.Tensor):
     return ulanes, ucounts, ucount
 
 
-def collect_kmers(seqs: Sequence[bytes | str], K: int,
-                  alphabet: Alphabet = DNA, canonical: bool = False,
-                  extra_codes=None, device="cuda"):
-    """Extract, sort, dedupe and count all k-mers of the input.
+def _sort_unique_stage(lanes: torch.Tensor, counts: torch.Tensor, count):
+    """Sort, dedupe and sum counts (saturated at emit). Per-group sums
+    are differences of the exclusive running sum taken at consecutive
+    group-first positions, which the compaction makes adjacent; int32
+    sums wrap as the JAX package's do, and the differences undo it."""
+    cap = lanes.shape[1]
+    dev = lanes.device
+    valid = packed.valid_mask(cap, count, dev)
+    counts = torch.where(valid, counts, 0)
+    lanes_s, (counts_s,) = pmerge.sort_packed(lanes, counts)
+    umask = packed.neighbor_ne(lanes_s) & valid     # PADs sorted to the back
+    csum = packed.blocked_cumsum(counts_s)
+    excl = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
+                      csum[:-1]])
+    total = torch.sum(counts_s, dtype=torch.int32).reshape(1)
+    ulanes, ucount, (b,) = pmerge.partition_compact(lanes_s, umask, cap, excl)
+    pos_ok = packed.valid_mask(cap, ucount)
+    nxt_ok = torch.cat([pos_ok[1:], torch.zeros((1,), dtype=torch.bool,
+                                                  device=dev)])
+    nxt = torch.where(nxt_ok, torch.cat([b[1:], total]), total)
+    ucounts = torch.where(pos_ok, nxt - b, 0).to(torch.int32)
+    return ulanes, ucounts, ucount
 
-    Returns (sorted unique lanes (L, max(n, 1)), counts, n, bounds), with
-    ``bounds`` the (sink, source) dummy-candidate node keys."""
-    dev = devmod.resolve(device)
+
+def _check_dna(alphabet: Alphabet):
     if alphabet.bits_per_char != 4 or alphabet.size > 5:
         raise NotImplementedError(
             f"alphabet {alphabet.name} is not yet ported (DNA only)")
+
+
+def collect_kmers(seqs: Sequence[bytes | str], K: int,
+                  alphabet: Alphabet = DNA, canonical: bool = False,
+                  extra_codes=None, device="cuda", with_bounds: bool = True):
+    """Extract, sort, dedupe and count all k-mers of the input.
+
+    Returns (sorted unique lanes (L, max(n, 1)), counts, n, bounds), with
+    ``bounds`` the (sink, source) dummy-candidate node keys, or None
+    without ``with_bounds``."""
+    dev = devmod.resolve(device)
+    _check_dna(alphabet)
     codes_np = (encode_sequences(seqs, alphabet) if extra_codes is None
                 else np.asarray(extra_codes, np.uint8))
     if codes_np.shape[0] < K:
         codes_np = np.concatenate(
             [codes_np, np.full(K - codes_np.shape[0], INVALID_CODE,
                                np.uint8)])
-    n = codes_np.shape[0]
-    inval = np.flatnonzero((codes_np - np.uint8(1)) > 3)  # 0 and >4 wrap
-    end_pos, start_pos = host_boundary_windows(inval, n, K)
+    bound_pos = None
+    if with_bounds:
+        inval = np.flatnonzero((codes_np - np.uint8(1)) > 3)  # 0, >4 wrap
+        bound_pos = tuple(torch.from_numpy(p).to(dev) for p in
+                          host_boundary_windows(inval, codes_np.shape[0], K))
     codes = torch.from_numpy(codes_np).to(dev)
-    ulanes, ucounts, ucount, bounds = _collect_bounds(
-        codes, torch.from_numpy(end_pos).to(dev),
-        torch.from_numpy(start_pos).to(dev), K, alphabet.bits_per_char,
-        canonical, alphabet.complement)
+    ulanes, ucounts, ucount, bounds = _collect(
+        codes, K, alphabet.bits_per_char, canonical, alphabet.complement,
+        bound_pos)
     n_u = int(ucount)                       # the collect's one host sync
     cap = max(n_u, 1)
     return ulanes[:, :cap], ucounts[:cap], n_u, bounds
+
+
+def collect_counted_kmers(chars: np.ndarray, counts: np.ndarray, K: int,
+                          alphabet: Alphabet = DNA, canonical: bool = False,
+                          device="cuda"):
+    """Sorted unique k-mers from pre-counted input (KMC databases): (n, K)
+    char codes and (n,) counts, clamped to 2^31 - 1. Returns (lanes
+    (L, max(n_u, 1)), counts, n_u)."""
+    dev = devmod.resolve(device)
+    _check_dna(alphabet)
+    B = alphabet.bits_per_char
+    n = chars.shape[0]
+    lanes = packing.pack_from_chars(
+        torch.from_numpy(np.ascontiguousarray(chars, np.uint8)).to(dev), K, B)
+    cnts = torch.from_numpy(np.minimum(np.asarray(counts, np.int64),
+                                       (1 << 31) - 1).astype(np.int32)).to(dev)
+    if n == 0:                              # one PAD column, as collect has
+        lanes = packed.full_pad(1, lanes.shape[0], dev)
+        cnts = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if canonical:
+        rc = packing.reverse_complement(lanes, K, B, alphabet.complement)
+        take_rc = packed.lt(rc, lanes) & packed.valid_mask(lanes.shape[1], n,
+                                                           dev)
+        lanes = torch.where(take_rc[None, :], rc, lanes)
+    ulanes, ucounts, ucount = _sort_unique_stage(lanes, cnts, n)
+    n_u = int(ucount)
+    cap = max(n_u, 1)
+    return ulanes[:, :cap], ucounts[:cap], n_u
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +253,7 @@ def _add_rc_stage(lanes, counts, count, K: int, B: int, complement):
     rc_comp, _, (rc_counts,) = pmerge.partition_compact(
         rc, add_mask, cap, counts)
     # sort only the rc half, then one linear merge with the sorted half
-    rc_s, (rc_counts_s,) = packed.sort(rc_comp, rc_counts)
+    rc_s, (rc_counts_s,) = pmerge.sort_packed(rc_comp, rc_counts)
     out_s, (counts_s,) = pmerge.merge_sorted(
         _masked(lanes, count), rc_s, (torch.where(valid, counts, 0),),
         (rc_counts_s,))
@@ -244,62 +318,163 @@ def _probe_dummies(real_m, sink_cand, src_cand, K: int, B: int, sigma: int):
     return sinks, n_sinks, src_s, n_src
 
 
-def _levels_phase(src, n_src, K: int, B: int):
-    """Dummy-source levels 2..K-1: each level is the previous one's
-    distinct source nodes stepped back one char, written into its own
-    slot of one PAD-filled buffer."""
-    cap = src.shape[1]
-    L = src.shape[0]
-    n_levels = max(K - 2, 0)
-    out = packed.full_pad(max(n_levels, 1) * cap, L, src.device)
-    cur, n_cur = src, n_src
-    total = _i32(0, src.device)
-    for c in range(n_levels):
-        valid = packed.valid_mask(cap, n_cur, src.device)
-        node_first = packed.neighbor_ne(packing.node_key(cur, B)) & valid
-        nxt = packing.to_prev(cur, K, B, 0)
-        cand, n_cand, _ = packed.compact(nxt, node_first, cap)
-        cand_s, _ = packed.sort(cand)
-        out[:, c * cap:(c + 1) * cap] = cand_s
-        cur, n_cur = cand_s, n_cand
-        total = total + n_cand
-    return out, total
+def _levels_phase(src: torch.Tensor, K: int, B: int):
+    """Dummy-source levels 2..K-1 from the sorted dummy-1 sources (no PAD
+    tail): each level is the previous one's distinct source nodes stepped
+    back one char, sorted. One host sync per level sizes it exactly: a
+    primary build has about one source per two real edges, and most of
+    its K - 2 levels stay that large, so PAD-filled slots of the first
+    level's size would double the dummy side."""
+    levels = []
+    cur = src
+    for _ in range(max(K - 2, 0)):
+        node_first = packed.neighbor_ne(packing.node_key(cur, B))
+        cand, n_cand, _ = packed.compact(packing.to_prev(cur, K, B, 0),
+                                         node_first, cur.shape[1])
+        cur, _ = pmerge.sort_packed(cand[:, :int(n_cand)])
+        levels.append(cur)
+    return levels
 
 
-def _merge_emit_body(real, counts, n_real, sinks, n_sinks, src, n_src,
-                     levels, n_levels_total, K: int, B: int,
-                     alph_size: int, max_count: int):
-    """Sort the (small) dummy side, merge it into the sorted real side in
-    one linear pass (merge kernel), then emit. Every dummy holds the
-    sentinel and no real edge does, so no key appears on both sides."""
+# Valid node / target keys have zero top bits (each char takes <= B
+# bits and the tag shift adds one more); after the tag-bit left shift
+# and the shift back, a PAD shows 0x7FFFFFFF in the top lane, above
+# every valid key.
+_PAD_TOP_AFTER_SHIFT = 0x7FFFFFFF
+
+
+def _tag_lanes(keys, tag: int):
+    """Shift a packed key left one bit and put ``tag`` in the new LSB, so
+    that within a run of equal keys the tag-0 entries sort first."""
+    out = packed.shift_left(keys, 1)
+    out[-1] = out[-1] | tag
+    return out
+
+
+def _merge_membership(keys, queries):
+    """Set membership of sorted ``queries`` in sorted ``keys`` (both
+    (L, n) with PAD tails) by ONE merge (merge kernel). Returns, in
+    merged order, which is sorted: (vals, is_q, present, is_pad,
+    run_first), ``present`` marking entries whose run of equal values
+    holds a key."""
+    merged, _ = pmerge.merge_sorted(_tag_lanes(keys, 0),
+                                    _tag_lanes(queries, 1))
+    tagbit = merged[-1] & 1
+    vals = packed.shift_right(merged, 1)
+    is_pad = ~packed.ult(vals[0], _PAD_TOP_AFTER_SHIFT)   # unsigned >=
+    is_q = (tagbit == 1) & ~is_pad
+    is_key = ((tagbit == 0) & ~is_pad).to(torch.int32)
+    keys_incl = packed.blocked_cumsum(is_key)
+    run_first = packed.neighbor_ne(vals)
+    # keys sort before queries within a run, so "my run has a key" = the
+    # key count grew since the run started (forward-filled by a cummax)
+    run_excl = packed.blocked_cummax(
+        torch.where(run_first, keys_incl - is_key, 0))
+    present = (keys_incl - run_excl) > 0
+    return vals, is_q, present, is_pad, run_first
+
+
+def _sink_candidates(real, n_real, K: int, B: int):
+    """Dummy sink edges (node e_2..e_K, label $): the target nodes of
+    real edges with no real outgoing edge, sorted and deduped. Returns
+    (sinks (L, cap) with a PAD tail, count)."""
+    cap = real.shape[1]
+    valid = packed.valid_mask(cap, n_real, real.device)[None, :]
+    # node_key preserves BOSS order: the masked keys are sorted
+    keys = torch.where(valid, packing.node_key(real, B), packed.PAD_LANE)
+    q_nodes = torch.where(valid, packing.node_key(
+        packing.to_next(real, K, B, 0), B), packed.PAD_LANE)
+    q_s, _ = pmerge.sort_packed(q_nodes)
+    vals, is_q, present, is_pad, run_first = _merge_membership(keys, q_s)
+    # each key-less run's first query once: duplicates are adjacent
+    keep = is_q & ~present & ~is_pad & run_first
+    nodes_out, n_out, _ = pmerge.partition_compact(vals, keep, cap)
+    sinks = torch.where(packed.valid_mask(cap, n_out)[None, :],
+                        packed.shift_left(nodes_out, B), packed.PAD_LANE)
+    return sinks, n_out
+
+
+def _source_candidates(real, n_real, K: int, B: int):
+    """Dummy-1 source edges ($ e_1..e_{K-2}, label e_{K-1}) of the source
+    nodes with no real incoming edge. The query key target_key(to_prev(e))
+    = (e_1..e_{K-2}, e_{K-1}) identifies the candidate and sorts in the
+    BOSS order of the dummy edge, so the compacted merged output is
+    sorted. Returns (src (L, cap) with a PAD tail, count)."""
+    cap = real.shape[1]
+    valid = packed.valid_mask(cap, n_real, real.device)
+    node_first = packed.neighbor_ne(packing.node_key(real, B)) & valid
+    q_t = packing.target_key(packing.to_prev(real, K, B, 0), B)
+    q_s, _ = pmerge.sort_packed(
+        torch.where(node_first[None, :], q_t, packed.PAD_LANE))
+    tk_s, _ = pmerge.sort_packed(
+        torch.where(valid[None, :], packing.target_key(real, B),
+                    packed.PAD_LANE))
+    vals, is_q, present, is_pad, _ = _merge_membership(tk_s, q_s)
+    keep = is_q & ~present & ~is_pad
+    tk_out, n_src, _ = pmerge.partition_compact(vals, keep, cap)
+    # rebuild the edge from its target key: e_1..e_{K-2} move up one
+    # slot past the $ sentinel, e_{K-1} stays the label
+    lab = packing.label(tk_out, B)
+    body = packed.set_field(tk_out, 0, torch.zeros_like(lab), B)
+    src = packed.set_field(packed.shift_left(body, B), 0, lab, B)
+    src = torch.where(packed.valid_mask(cap, n_src)[None, :], src,
+                      packed.PAD_LANE)
+    return src, n_src
+
+
+def _merge_emit_body(real, counts, n_real, dummy_parts, K: int, B: int,
+                     alph_size: int, max_count: int,
+                     skip_redundant_sinks: bool):
+    """Sort the dummy side (``dummy_parts``: lane arrays without PAD; the
+    list is emptied, so its arrays free once joined), merge it into the
+    sorted real side in one linear pass (merge kernel), then emit. Every
+    dummy holds the sentinel and no real edge does, so no key appears on
+    both sides."""
     L = real.shape[0]
     dev = real.device
-    dummies = torch.cat([_masked(sinks, n_sinks), _masked(src, n_src),
-                         levels, packed.zeros(1, L, dev)], dim=1)
-    dummies_s, _ = packed.sort(dummies)
+    dummies = torch.cat(dummy_parts + [packed.zeros(1, L, dev)], dim=1)
+    dummy_parts.clear()
+    dummies, _ = pmerge.sort_packed(dummies)
+    n_dummies = dummies.shape[1]
     counts_m = torch.where(packed.valid_mask(real.shape[1], n_real, dev),
                            counts, 0)
     merged, (mcounts,) = pmerge.merge_sorted(
-        _masked(real, n_real), dummies_s, (counts_m,),
-        (torch.zeros((dummies_s.shape[1],), dtype=torch.int32, device=dev),))
-    n_total = n_real + n_sinks + n_src + n_levels_total + 1
+        _masked(real, n_real), dummies, (counts_m,),
+        (torch.zeros((n_dummies,), dtype=torch.int32, device=dev),))
+    del dummies, counts_m
+    n_total = n_real + n_dummies
     mcounts = torch.where(packed.valid_mask(merged.shape[1], n_total, dev),
                           mcounts, 0)
-    return _emit_body(merged, mcounts, n_total, K, B, alph_size, max_count)
+    return _emit_body(merged, mcounts, n_total, K, B, alph_size, max_count,
+                      skip_redundant_sinks)
 
 
-def _emit_body(kept, kcounts, n_kept, K: int, B: int, alph_size: int,
-               max_count: int):
-    """The initialize_chunk scan, vectorized: last bits from neighbor
-    node-key compares, minus flags from per-label first occurrences in
-    each target block. The dummy sinks are exact (probe-based), so no
-    redundant sink needs removing."""
-    cap = kept.shape[1]
-    dev = kept.device
+def _emit_body(merged, counts, n_total, K: int, B: int, alph_size: int,
+               max_count: int, skip_redundant_sinks: bool):
+    """The initialize_chunk scan, vectorized: redundant sinks (a dummy
+    sink edge of a node that has a real outgoing edge) dropped by one
+    partition, then last bits from neighbor node-key compares and minus
+    flags from per-label first occurrences in each target block. The
+    probe-based dummy sinks are exact, so that finish skips the drop."""
+    cap = merged.shape[1]
+    dev = merged.device
     no = torch.zeros((1,), dtype=torch.bool, device=dev)
+    if skip_redundant_sinks:
+        valid = packed.valid_mask(cap, n_total, dev)
+        nodes = packing.node_key(merged, B)
+        same_next = (torch.cat([packed.eq(nodes[:, :-1], nodes[:, 1:]), no])
+                     & valid & torch.cat([valid[1:], no]))
+        skip = (same_next & (packing.label(merged, B) == 0)
+                & (packing.top_char(merged, K, B) != 0))
+        kept, n_kept, (kcounts,) = pmerge.partition_compact(
+            merged, valid & ~skip, cap, counts)
+        del valid, nodes, same_next, skip
+    else:
+        kept, n_kept, kcounts = merged, n_total, counts
     kvalid = packed.valid_mask(cap, n_kept, dev)
     knodes = packing.node_key(kept, B)
     ksame_next = torch.cat([packed.eq(knodes[:, :-1], knodes[:, 1:]), no])
+    del knodes
     next_valid = torch.cat([kvalid[1:], no])
     last = kvalid & ~(ksame_next & next_valid)
 
@@ -354,14 +529,41 @@ def _finish_stage_bounds(real, counts, n_real, sink_cand, src_cand,
         src_cand = torch.cat([src_c, rc_masked(tgt_c)], dim=1)
     sinks, n_sinks, src, n_src = _probe_dummies(
         real_m, sink_cand, src_cand, K, B, alph_size)
-    levels, n_levels_total = _levels_phase(src, n_src, K, B)
+    return _finish_tail(real, counts, n_real, sinks, n_sinks, src, n_src, K,
+                        B, alph_size, max_count, skip_redundant_sinks=False)
+
+
+def _finish_stage(real, counts, n_real, K: int, B: int, alph_size: int,
+                  max_count: int, canonical: bool, complement):
+    """Everything after collection without boundary candidates: rc
+    closure (canonical), the dummy sinks and sources from all real edges,
+    then ``_finish_tail``, dropping redundant sinks at emit."""
+    if canonical:
+        real, counts, n_real = _add_rc_stage(real, counts, n_real, K, B,
+                                             complement)
+    sinks, n_sinks = _sink_candidates(real, n_real, K, B)
+    src, n_src = _source_candidates(real, n_real, K, B)
+    return _finish_tail(real, counts, n_real, sinks, n_sinks, src, n_src, K,
+                        B, alph_size, max_count, skip_redundant_sinks=True)
+
+
+def _finish_tail(real, counts, n_real, sinks, n_sinks, src, n_src, K: int,
+                 B: int, alph_size: int, max_count: int,
+                 skip_redundant_sinks: bool):
+    """Levels, merge, emit and the search table from the dummy sinks and
+    dummy-1 sources (each sorted, with a PAD tail). One host sync sizes
+    both sets, so the dummy side carries no PAD."""
+    ns, nr = torch.stack([n_sinks, n_src]).tolist()
+    src = src[:, :nr]
+    parts = [sinks[:, :ns], src] + _levels_phase(src, K, B)
+    n_levels_total = sum(p.shape[1] for p in parts[2:])
     kept, n_kept, W, last, F, weights = _merge_emit_body(
-        real, counts, n_real, sinks, n_sinks, src, n_src, levels,
-        n_levels_total, K, B, alph_size, max_count)
+        real, counts, n_real, parts, K, B, alph_size, max_count,
+        skip_redundant_sinks)
     lut, max_bucket = _build_lut(kept, n_kept)     # the search table
     dev = kept.device
     stats = torch.stack([_i32(x, dev) for x in (
-        n_kept, n_sinks, n_src, n_levels_total, n_real, max_bucket)])
+        n_kept, ns, nr, n_levels_total, n_real, max_bucket)])
     return kept, W, last, F, weights, lut, stats
 
 
@@ -372,8 +574,8 @@ def _finish_stage_bounds(real, counts, n_real, sink_cand, src_cand,
 def _check_mode(mode: str, alphabet: Alphabet):
     if mode not in _PORTED_MODES:
         raise NotImplementedError(f"mode {mode!r} is not yet ported")
-    if mode == MODE_CANONICAL and not alphabet.complement:
-        raise ValueError(f"canonical mode needs a complemented alphabet; "
+    if mode != MODE_BASIC and not alphabet.complement:
+        raise ValueError(f"{mode} mode needs a complemented alphabet; "
                          f"{alphabet.name} has no complement table")
 
 
@@ -382,21 +584,25 @@ def build_boss_from_kmers(real, counts, n_real: int, K: int,
                           bits_per_count: int = 0,
                           bounds=None) -> Boss:
     """Generate the dummy edges, merge, and emit the BOSS arrays from
-    ``collect_kmers`` output (its ``bounds`` are required: the finish
-    from pre-counted k-mers is not yet ported)."""
+    sorted unique k-mers (``collect_kmers`` or ``collect_counted_kmers``).
+    With ``bounds`` (``collect_kmers``' boundary candidates) the dummies
+    come from probes of the candidates, else from sorts over all real
+    edges. ``mode`` canonical adds the reverse-complement closure; any
+    other mode builds the graph of the k-mers as given."""
     _check_mode(mode, alphabet)
-    if bounds is None:
-        raise NotImplementedError(
-            "the finish without boundary candidates (KMC input) is not "
-            "yet ported")
     B = alphabet.bits_per_char
     max_count = (1 << bits_per_count) - 1 if bits_per_count else (1 << 31) - 1
-    sink_cand, src_cand = bounds
-    kept, W, last, F, weights, lut, stats = _finish_stage_bounds(
-        real, counts, _i32(n_real, real.device), sink_cand, src_cand, K, B,
-        alphabet.size, max_count, mode == MODE_CANONICAL,
-        alphabet.complement)
-    stats = stats.cpu().numpy()              # the finish's one host sync
+    n = _i32(n_real, real.device)
+    canonical = mode == MODE_CANONICAL
+    if bounds is None:
+        kept, W, last, F, weights, lut, stats = _finish_stage(
+            real, counts, n, K, B, alphabet.size, max_count, canonical,
+            alphabet.complement)
+    else:
+        kept, W, last, F, weights, lut, stats = _finish_stage_bounds(
+            real, counts, n, *bounds, K, B, alphabet.size, max_count,
+            canonical, alphabet.complement)
+    stats = stats.cpu().numpy()              # the finish's last host sync
     return Boss.from_finish(
         k=K - 1, alph_size=alphabet.size, bits_per_char=B,
         kept=kept, W=W, last=last, F=F, n_kept=int(stats[0]),
@@ -408,12 +614,7 @@ def build_boss_from_codes(codes_np: np.ndarray, k: int,
                           alphabet: Alphabet = DNA, mode: str = MODE_BASIC,
                           bits_per_count: int = 0, device="cuda") -> Boss:
     """Build from a pre-encoded code array (INVALID between records)."""
-    _check_mode(mode, alphabet)
-    ulanes, ucounts, n_u, bounds = collect_kmers(
-        [], k, alphabet, canonical=mode == MODE_CANONICAL,
-        extra_codes=codes_np, device=device)
-    return build_boss_from_kmers(ulanes, ucounts, n_u, k, alphabet, mode=mode,
-                                 bits_per_count=bits_per_count, bounds=bounds)
+    return _build([], codes_np, k, alphabet, mode, bits_per_count, device)
 
 
 def build_boss(seqs: Sequence[bytes | str], k: int,
@@ -424,8 +625,21 @@ def build_boss(seqs: Sequence[bytes | str], k: int,
     k-mers of k characters; BOSS node length k-1)."""
     if suffix:
         raise NotImplementedError("suffix-sharded builds are not yet ported")
+    return _build(seqs, None, k, alphabet, mode, bits_per_count, device)
+
+
+def _build(seqs, codes_np, k: int, alphabet: Alphabet, mode: str,
+           bits_per_count: int, device) -> Boss:
+    """Collect, then finish. Primary mode folds each k-mer to its
+    canonical form and builds the basic graph over those; its boundary
+    windows no longer bound the dummy sets, so it takes the finish
+    without candidates."""
     _check_mode(mode, alphabet)
     ulanes, ucounts, n_u, bounds = collect_kmers(
-        seqs, k, alphabet, canonical=mode == MODE_CANONICAL, device=device)
-    return build_boss_from_kmers(ulanes, ucounts, n_u, k, alphabet, mode=mode,
-                                 bits_per_count=bits_per_count, bounds=bounds)
+        seqs, k, alphabet, canonical=mode != MODE_BASIC,
+        extra_codes=codes_np, device=device,
+        with_bounds=mode != MODE_PRIMARY)
+    return build_boss_from_kmers(
+        ulanes, ucounts, n_u, k, alphabet,
+        mode=MODE_CANONICAL if mode == MODE_CANONICAL else MODE_BASIC,
+        bits_per_count=bits_per_count, bounds=bounds)

@@ -25,6 +25,7 @@ from .boss import Boss
 
 MODE_BASIC = "basic"
 MODE_CANONICAL = "canonical"
+MODE_PRIMARY = "primary"     # one orientation per k-mer pair (canonical.py)
 
 
 @dataclass(frozen=True)
@@ -40,7 +41,7 @@ class DbgSuccinct:
                   valid: Optional[torch.Tensor] = None) -> "DbgSuccinct":
         """``valid``: (m,) bool real-edge mask incl. sentinel row 0;
         derived from edge_lanes when absent."""
-        if mode not in (MODE_BASIC, MODE_CANONICAL):
+        if mode not in (MODE_BASIC, MODE_CANONICAL, MODE_PRIMARY):
             raise NotImplementedError(f"{mode} graphs are not yet ported")
         if valid is None:
             if boss.edge_lanes is None:
@@ -64,6 +65,14 @@ class DbgSuccinct:
 
     def num_nodes(self) -> int:
         return int(self.valid_rank.num_set)
+
+    def num_anno_rows(self) -> int:
+        """Rows of an annotation of this graph: one per node."""
+        return self.num_nodes()
+
+    def node_to_anno_row(self, nodes: np.ndarray) -> np.ndarray:
+        """Annotation row of each (present) node id: node - 1."""
+        return np.asarray(nodes).astype(np.int64) - 1
 
     def edge_to_node(self, edge: torch.Tensor) -> torch.Tensor:
         """BOSS edge row -> DBG node id (0 if dummy or absent)."""
@@ -90,7 +99,7 @@ class DbgSuccinct:
         B = self.alphabet.bits_per_char
         ok = window_validity(codes, K)
         lanes = packing.pack_windows(codes, K, B)
-        if self.mode == MODE_CANONICAL:
+        if self.mode in (MODE_CANONICAL, MODE_PRIMARY):
             rc = packing.reverse_complement(lanes, K, B,
                                             self.alphabet.complement)
             lanes = torch.where(packed.lt(rc, lanes)[None, :], rc, lanes)

@@ -83,8 +83,14 @@ def to_prev(x: torch.Tensor, K: int, B: int, new_first) -> torch.Tensor:
     return out
 
 
+def pack_from_chars(chars: torch.Tensor, K: int, B: int) -> torch.Tensor:
+    """Pack (N, K) char codes e_1..e_K into BOSS field layout -> (L, N)."""
+    fields = torch.cat([chars[:, K - 1:K].T, chars[:, :K - 1].T])
+    return packed.from_fields(fields.to(packed.LANE_DTYPE), B)
+
+
 def unpack_to_chars(x: torch.Tensor, K: int, B: int) -> torch.Tensor:
-    """Packed edge k-mers -> (N, K) uint8 codes e_1..e_K."""
+    """Inverse of ``pack_from_chars`` -> (N, K) uint8 codes e_1..e_K."""
     fields = packed.to_fields(x, K, B)
     return torch.cat([fields[1:K], fields[0:1]]).T.to(torch.uint8)
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's build and query goes, on one GPU.
 
-    python scripts/profile_torch_build.py [--k 20] [--mode basic]
+    python scripts/profile_torch_build.py [--k 20]
+        [--mode basic|canonical|primary]
         [--log2-codes 25] [--reads 32768] [--out profile_out]
 
 Builds a graph from 2^log2-codes random ACGT codes (numpy
@@ -61,6 +62,7 @@ def main():
     from metagraph_tpu_torch.engine.annotated_dbg import (AnnotatedDbg,
                                                           BatchQuery)
     from metagraph_tpu_torch.graph import boss_construct as bc
+    from metagraph_tpu_torch.graph.canonical import CanonicalDbg
     from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -76,14 +78,17 @@ def main():
         t = {}
         torch.cuda.synchronize()
         t0 = time.time()
+        # primary: canonical forms, then the basic finish without
+        # boundary candidates (the sorts over all real edges)
         real, counts, n_u, bounds = bc.collect_kmers(
-            [], K, canonical=mode == "canonical", extra_codes=codes,
-            device=dev)
+            [], K, canonical=mode != "basic", extra_codes=codes,
+            device=dev, with_bounds=mode != "primary")
         torch.cuda.synchronize()
         t["collect"] = time.time() - t0
         t0 = time.time()
-        boss = bc.build_boss_from_kmers(real, counts, n_u, K, mode=mode,
-                                        bounds=bounds)
+        boss = bc.build_boss_from_kmers(
+            real, counts, n_u, K,
+            mode="basic" if mode == "primary" else mode, bounds=bounds)
         torch.cuda.synchronize()
         t["finish+from_finish"] = time.time() - t0
         return boss, t
@@ -97,9 +102,11 @@ def main():
           f"{(n - K + 1) / total / 1e6:.2f} M k-mers/s", flush=True)
 
     graph = DbgSuccinct.from_boss(boss, mode=mode)
+    if mode == "primary":
+        graph = CanonicalDbg(base=graph)
     # one label per 1/16 of the input, all rows: the query's matrix shape
-    ann = ColumnAnnotator(graph.num_nodes(), device=dev)
-    rows = np.arange(graph.num_nodes(), dtype=np.int64)
+    ann = ColumnAnnotator(graph.num_anno_rows(), device=dev)
+    rows = np.arange(graph.num_anno_rows(), dtype=np.int64)
     for c, part in enumerate(np.array_split(rows, 16)):
         ann.add(part, f"label_{c}")
     bq = BatchQuery(AnnotatedDbg(graph=graph, annotation=ann.finalize()))

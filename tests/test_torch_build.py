@@ -2,7 +2,9 @@
 
 ``build_boss`` runs on the same sequences in both packages (the port on
 ``device="cpu"``, where its kernel wrappers take the plain versions);
-W, last, F, NF, weights, edge_lanes and the node count must be identical.
+W, last, F, NF, weights, edge_lanes and the node count must be identical,
+in modes basic and canonical (the finish over boundary candidates) and
+primary (the finish over sorts of all real edges).
 """
 
 import numpy as np
@@ -57,6 +59,17 @@ def test_build_random_dna(k, mode, bits_per_count):
     assert_same_boss(jb, tb, bits_per_count > 0)
 
 
+@pytest.mark.parametrize("bits_per_count", [0, 8])
+@pytest.mark.parametrize("k", [9, 11, 16, 20, 31])
+def test_build_primary_random_dna(k, bits_per_count):
+    seqs = random_reads(k)
+    seqs.append(seqs[1])
+    jb = jbuild(seqs, k, mode="primary", bits_per_count=bits_per_count)
+    tb = tbc.build_boss(seqs, k, mode="primary",
+                        bits_per_count=bits_per_count, device="cpu")
+    assert_same_boss(jb, tb, bits_per_count > 0)
+
+
 ADVERSARIAL = {
     "homopolymer": [b"A" * 80, b"C" * 40],
     "repeated_read": [b"ACGTTGCAAGGCTTACCGATAG"] * 12,
@@ -67,7 +80,7 @@ ADVERSARIAL = {
 }
 
 
-@pytest.mark.parametrize("mode", ["basic", "canonical"])
+@pytest.mark.parametrize("mode", ["basic", "canonical", "primary"])
 @pytest.mark.parametrize("case", sorted(ADVERSARIAL))
 def test_build_adversarial(case, mode):
     seqs = ADVERSARIAL[case]
@@ -90,6 +103,18 @@ def test_build_from_codes_matches_jax(tmp_path):
     assert_same_boss(jb, tb, True)
 
 
+def test_build_primary_from_codes_matches_jax(tmp_path):
+    rng = np.random.default_rng(6)
+    fa = tmp_path / "in.fa"
+    fa.write_bytes(b"".join(b">r%d\n%s\n" % (i, random_dna(rng, 70))
+                            for i in range(9)) + b">n\nACGTNNACGTAC\n")
+    codes = read_and_encode(str(fa), tbc.DNA)
+    jb = jbuild_codes(codes, 13, DNA, mode="primary", bits_per_count=6)
+    tb = tbc.build_boss_from_codes(codes, 13, mode="primary",
+                                   bits_per_count=6, device="cpu")
+    assert_same_boss(jb, tb, True)
+
+
 def test_count_saturation():
     """Counts saturate at emit: 2^bits - 1 for heavily repeated k-mers,
     palindromes doubled first (canonical)."""
@@ -102,7 +127,9 @@ def test_count_saturation():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: tbc.build_boss([b"ACGT" * 9], 9, mode="primary", device="cpu"),
+    lambda: tbc.collect_counted_kmers(np.ones((3, 9), np.uint8),
+                                      np.ones(3), 9, alphabet=TDNA5,
+                                      device="cpu"),
     lambda: tbc.build_boss([b"ACGT" * 9], 9, suffix=(1,), device="cpu"),
     lambda: tbc.build_boss([b"ACGT" * 9], 9, alphabet=TDNA5, device="cpu"),
 ])

@@ -1,7 +1,8 @@
 """The port's CLI against the JAX package's CLI, in process.
 
-build, annotate, query (also with --align), align and stats must print
-byte-identical stdout (the port with ``--device cpu``), and a
+build (from FASTA in modes basic, canonical and primary, and from a KMC
+database), annotate, query (also with --align), align and stats must
+print byte-identical stdout (the port with ``--device cpu``), and a
 ``.dbg.npz`` written by either package must load in the other.
 """
 
@@ -12,6 +13,7 @@ import torch
 from conftest import random_dna
 from metagraph_tpu.cli.main import main as jmain
 from metagraph_tpu_torch.cli.main import main as tmain
+from test_torch_kmc import write_kmc2
 
 torch.set_num_threads(2)
 
@@ -111,6 +113,85 @@ def test_annotate_counts_identical(fasta, capsys):
         np.testing.assert_array_equal(tz[key], jz[key])
 
 
+def annotate_and_query(capsys, j, t, inp, queries):
+    """Annotate graphs j (JAX) and t (port) with the records of ``inp``
+    and check the annotation stats and every query of QUERIES."""
+    anno = ["--anno-header", "--anno-label", "all", "--anno-filename"]
+    run(capsys, jmain, ["annotate", "-i", j] + anno + [inp])
+    tport(capsys, ["annotate", "-i", t] + anno + [inp])
+    ja, ta = j + ".column.annodbg.npz", t + ".column.annodbg.npz"
+    assert tport(capsys, ["stats", ta]) == run(capsys, jmain, ["stats", ja])
+    for q in QUERIES:
+        argv = ["query"] + q + [queries]
+        want = run(capsys, jmain, argv[:1] + ["-i", j, "-a", ja] + argv[1:])
+        assert want
+        assert tport(capsys, argv[:1] + ["-i", t, "-a", ta] + argv[1:]) \
+            == want
+
+
+@pytest.mark.parametrize("extra", [[], ["--count-kmers"]])
+def test_primary_build_annotate_query_identical(fasta, capsys, extra):
+    j, t = str(fasta / f"pj{len(extra)}"), str(fasta / f"pt{len(extra)}")
+    inp = str(fasta / "in.fa")
+    args = ["build", "-k", "15", "--mode", "primary"] + extra
+    run(capsys, jmain, args + ["-o", j, inp])
+    tport(capsys, args + ["-o", t, inp])
+    want = run(capsys, jmain, ["stats", j])
+    assert "mode: primary" in want
+    assert tport(capsys, ["stats", t]) == want
+    assert tport(capsys, ["stats", j]) == want
+    annotate_and_query(capsys, j, t, inp, str(fasta / "q.fa"))
+
+
+@pytest.fixture(scope="module")
+def kmc_db(fasta):
+    """A both-strand KMC2 database of the k = 11 k-mers of in.fa's
+    records, each canonical form with its count."""
+    tbl = np.full(256, 255, np.uint8)
+    tbl[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    codes = tbl[np.frombuffer(b"N".join(
+        line for line in (fasta / "in.fa").read_bytes().split(b"\n")
+        if not line.startswith(b">")), np.uint8)]
+    win = np.lib.stride_tricks.sliding_window_view(codes, 11)
+    win = win[(win != 255).all(axis=1)]
+    rc = 3 - win[:, ::-1]
+    take = np.array([tuple(r) < tuple(w) for r, w in zip(rc, win)])
+    kmers, counts = np.unique(np.where(take[:, None], rc, win), axis=0,
+                              return_counts=True)
+    return write_kmc2(str(fasta / "db"), kmers, counts.astype(np.int64), 11,
+                      4, 5, 3, 0)
+
+
+@pytest.mark.parametrize("mode,extra", [
+    ("basic", []), ("canonical", ["--min-count", "2"]),
+    ("primary", ["--count-kmers"]),
+    ("basic", ["--min-count", "2", "--max-count", "3", "--count-kmers"])])
+def test_kmc_build_stats_identical(fasta, kmc_db, capsys, mode, extra):
+    j, t = (str(fasta / f"kj{mode}{len(extra)}"),
+            str(fasta / f"kt{mode}{len(extra)}"))
+    args = ["build", "-k", "11", "--mode", mode] + extra
+    run(capsys, jmain, args + ["-o", j, kmc_db + ".kmc_pre"])
+    tport(capsys, args + ["-o", t, kmc_db + ".kmc_pre"])
+    want = run(capsys, jmain, ["stats", j])
+    assert f"mode: {mode}" in want
+    assert tport(capsys, ["stats", t]) == want
+    if mode == "primary":
+        annotate_and_query(capsys, j, t, str(fasta / "in.fa"),
+                           str(fasta / "q.fa"))
+
+
+def test_primary_align_unported(fasta, capsys):
+    g = str(fasta / "palign")
+    tport(capsys, ["build", "-k", "11", "--mode", "primary", "-o", g,
+                   str(fasta / "in.fa")])
+    tport(capsys, ["annotate", "-i", g, "--anno-header", str(fasta / "in.fa")])
+    for argv in (["align", "-i", g, str(fasta / "q.fa")],
+                 ["query", "--align", "-i", g, "-a",
+                  g + ".column.annodbg.npz", str(fasta / "q.fa")]):
+        with pytest.raises(SystemExit, match="not yet ported"):
+            tport(capsys, argv)
+
+
 @pytest.fixture(scope="module")
 def align_graphs(fasta, tmp_path_factory):
     """A k=15 basic graph of in.fa built by each package."""
@@ -178,7 +259,7 @@ def test_query_align_identical(fasta, capsys, mode):
 @pytest.mark.parametrize("argv", [
     ["assemble", "-i", "g"],
     ["align", "-i", "g", "-o", "paths.gfa", "q.fa"],
-    ["build", "-k", "11", "--mode", "primary", "x.fa"],
+    ["build", "-k", "11", "--suffix", "A", "x.fa"],
     ["build", "-k", "11", "--suffix-len", "2", "x.fa"],
     ["query", "-i", "g", "-a", "a", "--query-coords", "q.fa"],
 ])

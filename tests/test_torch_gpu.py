@@ -131,6 +131,68 @@ def test_kernels_reject_bad_input(dev):
         merge.merge_sorted(x, x)
 
 
+def _keys(rng, n, L, hi, dev):
+    """(L, n) random lanes, each lane below ``hi`` (few values: duplicates)."""
+    return packed.lanes_from_numpy(
+        rng.integers(0, hi, (L, n), dtype=np.uint64).astype(np.uint32), dev)
+
+
+SORT_CASES = [
+    # n, L, payloads, lane values below
+    (0, 2, 1, 1 << 32),
+    (1, 4, 2, 1 << 32),
+    (2047, 4, 1, 1 << 32),                 # one partial leaf
+    (2048, 2, 0, 1 << 32),                 # one full leaf, no level
+    (2049, 3, 2, 7),                       # a lone trailing run of 1
+    (3 * 2048 + 5, 2, 1, 1 << 32),         # 4 runs, ragged last
+    (100_003, 4, 1, 5),                    # heavy duplicates, 6 levels
+    ((1 << 20) + 7, 2, 0, 1 << 32),
+    (5000, 8, 2, 3),                       # 8 lanes
+]
+
+
+@pytest.mark.parametrize("n,L,E,hi", SORT_CASES)
+def test_sort_kernel_matches_plain(dev, n, L, E, hi):
+    rng = np.random.default_rng(n + L)
+    x = _keys(rng, n, L, hi, dev)
+    x[:, rng.random(n) < 0.05] = packed.PAD_LANE
+    extras = [torch.from_numpy(rng.integers(-2**31, 2**31, n)
+                               .astype(np.int32)).to(dev) for _ in range(E)]
+    n0 = merge.sort_launches
+    got, ge = merge.sort_packed(x, *extras)
+    want, we = merge.sort_packed_plain(x, *extras)
+    torch.cuda.synchronize()
+    assert merge.sort_launches == n0 + (1 if n else 0)
+    _same([got, *ge], [want, *we])
+
+
+@pytest.mark.parametrize("kind", ["equal", "pad", "sorted", "reversed"])
+def test_sort_kernel_special_inputs(dev, kind):
+    """Stability on all-equal keys, all PAD, sorted and reversed input."""
+    n, L = 3 * 2048 + 777, 3
+    rng = np.random.default_rng(5)
+    if kind == "equal":
+        x = packed.lanes_from_numpy(np.full((L, n), 12345, np.uint32), dev)
+    elif kind == "pad":
+        x = packed.full_pad(n, L, dev)
+    else:
+        x, _ = merge.sort_packed_plain(_keys(rng, n, L, 1 << 32, dev))
+        if kind == "reversed":
+            x = x.flip(1).contiguous()
+    pay = torch.arange(n, dtype=torch.int32, device=dev)
+    got, (gp,) = merge.sort_packed(x, pay)
+    want, (wp,) = merge.sort_packed_plain(x, pay)
+    _same([got, gp], [want, wp])
+
+
+def test_sort_kernel_rejects_bad_input(dev):
+    with pytest.raises(ValueError):
+        merge.sort_packed(packed.full_pad(10, 9, dev))
+    with pytest.raises(TypeError):
+        merge.sort_packed(packed.full_pad(10, 2, dev),
+                          torch.zeros(9, dtype=torch.int32, device=dev))
+
+
 def _pairs(rng, R, LQ, LR, dev):
     """Related (query, ref) pairs with random lengths and the edge rows:
     qlen 0, rlen 0, an identical pair and all-0 codes."""
@@ -232,3 +294,45 @@ def test_aligner_cuda_equals_cpu(dev):
                     (b.score, b.cigar, b.query_begin, b.query_end,
                      b.sequence, b.orientation)
                 assert np.array_equal(a.nodes, b.nodes)
+
+
+def _same_boss(a, b):
+    for name in ("W", "last", "F", "NF", "weights", "edge_lanes"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()), \
+            name
+
+
+@pytest.mark.parametrize("k", [11, 31])
+def test_primary_build_cuda_equals_cpu(dev, k):
+    """The finish over sorts of all real edges (primary mode) at 2^16
+    codes with read breaks: the card's build equals the CPU build."""
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    rng = np.random.default_rng(k)
+    codes = rng.integers(1, 5, 1 << 16).astype(np.uint8)
+    codes[rng.integers(0, len(codes), 200)] = 255
+    n0 = merge.sort_launches
+    got, want = (build_boss_from_codes(codes, k, mode="primary",
+                                       bits_per_count=8, device=d)
+                 for d in (dev, "cpu"))
+    assert merge.sort_launches > n0
+    _same_boss(got, want)
+
+
+@pytest.mark.parametrize("mode", ["basic", "canonical"])
+def test_kmc_build_cuda_equals_cpu(dev, mode):
+    """Pre-counted k-mers (the KMC path: _sort_unique_stage, then the
+    finish without candidates) from 2^16 codes: card equals CPU."""
+    from metagraph_tpu_torch.graph.boss_construct import (
+        build_boss_from_kmers, collect_counted_kmers)
+    k = 31
+    codes = np.random.default_rng(7).integers(1, 5, 1 << 16).astype(np.uint8)
+    win = np.lib.stride_tricks.sliding_window_view(codes, k)
+    chars, counts = np.unique(np.concatenate([win, win[:5000]]), axis=0,
+                              return_counts=True)
+    bosses = []
+    for d in (dev, "cpu"):
+        lanes, cnts, n = collect_counted_kmers(
+            chars, counts, k, canonical=mode == "canonical", device=d)
+        bosses.append(build_boss_from_kmers(lanes, cnts, n, k, mode=mode,
+                                            bits_per_count=8))
+    _same_boss(*bosses)

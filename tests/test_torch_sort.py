@@ -1,0 +1,103 @@
+"""The port's ``sort_packed`` against the JAX package, on the CPU.
+
+On a CPU tensor the wrapper runs its plain version (stable ``torch.sort``
+passes); the CUDA kernel is held to that plain version bit for bit in
+``tests/test_torch_gpu.py``. Here the port's sort must give the keys of
+the JAX ``sort_packed`` (run as the JAX tests run it: its Pallas merge
+levels in interpret mode) and, within each run of equal keys, the same
+payloads as a multiset, since the TPU kernel is unstable; against the
+JAX package's stable ``packed.sort`` the payload order must match too.
+Integer data: exact.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from metagraph_tpu.common import merge as jmerge
+from metagraph_tpu.common import packed as jpacked
+from metagraph_tpu_torch.common import merge, packed
+
+torch.set_num_threads(2)
+
+# (n_valid, cap, L, leaf) of the JAX package's own sort_packed cases
+SORT_CASES = [
+    (4000, 4096, 2, 1024),
+    (8192, 8192, 2, 1024),
+    (5000, 6144, 3, 2048),
+    (900, 1024, 2, 1024),
+    (10000, 10240, 1, 1024),
+]
+
+
+def _lanes(rng, n, cap, L, hi):
+    lanes = np.full((L, cap), 0xFFFFFFFF, np.uint32)
+    for j in range(L):
+        lanes[j, :n] = rng.integers(0, hi, n).astype(np.uint32)
+    return lanes
+
+
+def _run_multisets(keys, pay, n):
+    """Payloads sorted within each run of equal keys, over the first n."""
+    order = np.lexsort([pay[:n]] + [keys[j][:n] for j in
+                                    range(keys.shape[0] - 1, -1, -1)])
+    return pay[:n][order]
+
+
+@pytest.mark.parametrize("n,cap,L,leaf", SORT_CASES)
+def test_sort_packed_matches_jax_kernel(n, cap, L, leaf):
+    rng = np.random.default_rng(n + cap + L)
+    lanes = _lanes(rng, n, cap, L, 50)              # many duplicates
+    pay = rng.integers(0, 1 << 30, cap).astype(np.int32)
+    want, (wp,) = jmerge.sort_packed(jnp.asarray(lanes), jnp.asarray(pay),
+                                     chunk=1024, leaf=leaf, interpret=True,
+                                     force_pallas=True)
+    got, (gp,) = merge.sort_packed(packed.lanes_from_numpy(lanes, "cpu"),
+                                   torch.from_numpy(pay))
+    gk, wk = packed.lanes_to_numpy(got), np.asarray(want)
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(_run_multisets(gk, gp.numpy(), n),
+                                  _run_multisets(wk, np.asarray(wp), n))
+
+
+def test_sort_packed_matches_jax_kernel_large():
+    """50 000 mostly distinct keys in 50 leaf runs: 6 ragged levels."""
+    rng = np.random.default_rng(77)
+    n, cap = 50000, 51200
+    v = rng.integers(0, 1 << 62, n).astype(np.uint64)
+    lanes = np.full((2, cap), 0xFFFFFFFF, np.uint32)
+    lanes[0, :n] = (v >> 32).astype(np.uint32)
+    lanes[1, :n] = (v & 0xFFFFFFFF).astype(np.uint32)
+    want, _ = jmerge.sort_packed(jnp.asarray(lanes), chunk=1024, leaf=1024,
+                                 interpret=True, force_pallas=True)
+    got, _ = merge.sort_packed(packed.lanes_from_numpy(lanes, "cpu"))
+    np.testing.assert_array_equal(packed.lanes_to_numpy(got),
+                                  np.asarray(want))
+
+
+@pytest.mark.parametrize("L,E,hi", [(1, 1, 3), (2, 2, 7), (4, 1, 2),
+                                    (3, 0, 1 << 32)])
+def test_sort_packed_stable_like_jax_sort(L, E, hi):
+    """Equal keys keep their input order, payloads included: the port
+    equals the JAX package's stable ``packed.sort`` bit for bit."""
+    rng = np.random.default_rng(L * 10 + E)
+    n = 20011
+    lanes = _lanes(rng, n, n, L, hi)
+    lanes[:, rng.random(n) < 0.1] = 0xFFFFFFFF       # PAD mixed in
+    pays = [rng.integers(-2**31, 2**31, n).astype(np.int32) for _ in range(E)]
+    want, wps = jpacked.sort(jnp.asarray(lanes),
+                             *[jnp.asarray(p) for p in pays])
+    got, gps = merge.sort_packed(packed.lanes_from_numpy(lanes, "cpu"),
+                                 *[torch.from_numpy(p) for p in pays])
+    np.testing.assert_array_equal(packed.lanes_to_numpy(got),
+                                  np.asarray(want))
+    for g, w in zip(gps, wps):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_sort_packed_empty_and_one():
+    for n in (0, 1):
+        x = packed.full_pad(n, 2, "cpu")
+        got, (gp,) = merge.sort_packed(x, torch.arange(n, dtype=torch.int32))
+        assert got.shape == (2, n) and gp.shape == (n,)
