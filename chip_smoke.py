@@ -9,10 +9,11 @@ Phases (each raises on failure; the process exits non-zero):
   1. builds the CUDA kernels of metagraph_tpu_torch/csrc from source.
   2. checks each kernel against its plain PyTorch version on the card,
      bit for bit, at the main path's shapes (2^25 entries for the build
-     kernels, the sort at L = 2, 4 and 4 with a payload; 2^14 pairs of
-     112 x 128 for the alignment DP) and at edge cases; prints the median
-     times of the kernel, of its plain version and (where one exists) of
-     one PyTorch library call, and its bound.
+     kernels, the sort at L = 2, 4 and 4 with a payload, and on the lanes
+     the k = 20 collect sorts, with the radix passes that ran; 2^14 pairs
+     of 112 x 128 for the alignment DP) and at edge cases; prints the
+     median times of the kernel, of its plain version and (where one
+     exists) of one PyTorch library call, and its bound.
   3. the main paths, each with every kernel's launch counter zeroed just
      before and read just after it:
      a. build: build_boss_from_codes on 2^25 random ACGT codes, k = 31
@@ -191,7 +192,7 @@ def check_sort(gen, dev, n, L, E, time_it=False, x=None):
     if x is None:
         x = torch.randint(-2**31, 2**31, (L, n), generator=gen,
                           dtype=torch.int64, device=dev).to(torch.int32)
-    n = x.shape[1]
+    L, n = x.shape
     extras = [torch.randint(-2**31, 2**31, (n,), generator=gen,
                             dtype=torch.int64, device=dev).to(torch.int32)
               for _ in range(E)]
@@ -216,6 +217,20 @@ def check_sort(gen, dev, n, L, E, time_it=False, x=None):
     return err, ms, plain, lib_ms, bound(2 * (4 * L + 4 * E) * n)
 
 
+def collect_lanes(dev, K):
+    """The (2, N - K + 1) lanes that _collect sorts for a basic build of
+    the 2^25 codes: 2-bit windows, PAD at invalid ones."""
+    import torch
+    from metagraph_tpu_torch.common import packed
+    from metagraph_tpu_torch.kmer import packing
+    from metagraph_tpu_torch.kmer.extractor import window_validity
+    codes = torch.from_numpy(np.random.default_rng(SEED).integers(
+        1, 5, N_CODES).astype(np.uint8)).to(dev)
+    ok = window_validity(codes, K)
+    lanes2 = packing.pack_windows((codes - 1) & 3, K, 2)
+    return torch.where(ok[None, :], lanes2, packed.PAD_LANE).contiguous()
+
+
 def phase_sort(gen, dev):
     """sort_packed at the main path's shapes (the collect's L = 2, the
     sort-based finish's L = 4, the KMC stage's L = 4 with one payload)
@@ -234,10 +249,23 @@ def phase_sort(gen, dev):
             f"{ms:.3f} ms, plain {plain:.3f} ms, library torch.sort of the "
             f"fused key {lib}, bound {bms:.3f} ms (median of 5)")
         summary = summary or res
-    leaf = merge._cuda.lib().mg_sort_leaf()
-    for m in (0, 1, 2, leaf - 1, leaf, leaf + 1, 4 * leaf + 100,
+    # the lanes _collect hands to _sort_unique_ones_body at k = 20 (2 bits
+    # per char: 40 bits in two lanes), where constant digits drop
+    lanes = collect_lanes(dev, 20)
+    p0 = merge.sort_digit_passes
+    merge.sort_packed(lanes)
+    passes = merge.sort_digit_passes - p0
+    err, ms, plain, lib_ms, (bms, _) = check_sort(gen, dev, 0, 0, 0,
+                                                  time_it=True, x=lanes)
+    log(f"sort_packed L=2 N={lanes.shape[1]} (the k=20 collect's lanes): "
+        f"bit-exact, {passes} of 8 digit passes run, kernel {ms:.3f} ms, "
+        f"plain {plain:.3f} ms, library torch.sort of the fused key "
+        f"{lib_ms:.3f} ms, bound {bms:.3f} ms (median of 5)")
+    del lanes
+    tile = merge._cuda.lib().mg_sort_tile(3)
+    for m in (0, 1, 2, tile - 1, tile, tile + 1, 5 * tile + 100,
               (1 << 20) + 13):
-        check_sort(gen, dev, m, 3, 2)              # + a lone trailing run
+        check_sort(gen, dev, m, 3, 2)
     m = 100_003
     check_sort(gen, dev, 0, 0, 1, x=packed.lanes_from_numpy(
         np.full((3, m), 77, np.uint32), dev))     # all equal: stability
@@ -247,10 +275,24 @@ def phase_sort(gen, dev):
     x, _ = merge.sort_packed_plain(x)
     check_sort(gen, dev, 0, 0, 2, x=x)                             # sorted
     check_sort(gen, dev, 0, 0, 2, x=x.flip(1).contiguous())      # reversed
-    log("sort_packed edge cases (N = 0, 1, 2, leaf - 1, leaf, leaf + 1, "
-        "5 runs with a lone trailing one, 2^20 + 13, all keys equal, all "
-        "PAD, sorted and reversed with duplicates; 1-2 payloads): "
-        "bit-exact")
+    # constant digits (passes skipped) with PAD mixed in, and non-PAD keys
+    # that read 0xFF on every digit that runs
+    x = torch.randint(0, 1 << 16, (3, m), generator=gen, device=dev,
+                      dtype=torch.int32)
+    x[:2] = 0x01020304
+    x[:, torch.rand(m, generator=gen, device=dev) < 0.1] = packed.PAD_LANE
+    check_sort(gen, dev, 0, 0, 1, x=x)
+    x[:2] = 0
+    x[2] = torch.randint(0, 3, (m,), generator=gen, device=dev,
+                         dtype=torch.int32) * 0x7F7F7F7F
+    x[2, torch.rand(m, generator=gen, device=dev) < 0.2] = packed.PAD_LANE
+    x[:, torch.rand(m, generator=gen, device=dev) < 0.2] = packed.PAD_LANE
+    check_sort(gen, dev, 0, 0, 2, x=x)
+    log(f"sort_packed edge cases (N = 0, 1, 2, tile - 1, tile, tile + 1, "
+        f"5 tiles + 100, 2^20 + 13 with tile = {tile} at L = 3; all keys "
+        f"equal, all PAD, sorted and reversed with duplicates, constant "
+        f"digits with PAD, keys 0xFF on every digit that runs; 1-2 "
+        f"payloads): bit-exact")
     return summary
 
 
@@ -462,6 +504,7 @@ def zero_launches():
     merge.partition_launches = 0
     merge.merge_launches = 0
     merge.sort_launches = 0
+    merge.sort_digit_passes = 0
     pallas_dp.dp_launches = 0
 
 
@@ -485,6 +528,7 @@ def check_launched(launches, names, what):
 
 def phase_main_path(dev):
     import torch
+    from metagraph_tpu_torch.common import merge
     from metagraph_tpu_torch.engine.annotated_dbg import (
         AnnotatedDbg, BatchQuery, annotate_sequences)
     from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
@@ -538,7 +582,8 @@ def phase_main_path(dev):
     dt = time.time() - t0
     launches = read_launches()
     check_launched(launches, BUILD_KERNELS, "the build path")
-    log(f"launch counts over the build path: {launches}")
+    log(f"launch counts over the build path: {launches}; "
+        f"{merge.sort_digit_passes} radix digit passes in its sorts")
     bad = [i for i, r in enumerate(which) if labels[r] not in got[i]]
     if bad:
         raise AssertionError(f"{len(bad)} sampled reads miss their label, "
@@ -760,6 +805,7 @@ def phase_primary(dev):
     then annotation and queries through CanonicalDbg; returns the build's
     launch counts."""
     import torch
+    from metagraph_tpu_torch.common import merge
     from metagraph_tpu_torch.engine.annotated_dbg import (
         AnnotatedDbg, BatchQuery, annotate_sequences)
     from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
@@ -777,13 +823,15 @@ def phase_primary(dev):
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = read_launches()
+    passes = merge.sort_digit_passes
     check_launched(launches, BUILD_KERNELS, "the primary build")
     peak = torch.cuda.max_memory_allocated() / 2**30
     real = check_graph(boss, codes, K, "primary")
     log(f"build k=31 primary 2^25 codes: {boss.num_edges} edges, {real} "
         f"real = numpy gold (distinct canonical forms); {dt:.3f} s (first "
         f"primary build of the run) = {(N_CODES - K + 1) / dt / 1e6:.2f} M "
-        f"k-mers/s; peak device memory {peak:.1f} GiB; launches {launches}")
+        f"k-mers/s; peak device memory {peak:.1f} GiB; launches {launches}"
+        f"; {passes} radix digit passes in its sorts")
 
     graph = CanonicalDbg(base=DbgSuccinct.from_boss(boss, mode="primary"))
     # annotation is host-bound per char: 100 records of 2^15 codes

@@ -42,9 +42,10 @@ SOURCES = {
                       _P, _P], _I),
     },
     "sort.cu": {
-        "mg_sort_leaf": ([], _I),
-        "mg_sort": ([_P, _LL, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P],
-                    _I),
+        "mg_sort_tile": ([_I], _I),
+        "mg_sort_hist": ([_P, _LL, _I, _P, _P], _I),
+        "mg_sort_pass": ([_P, _LL, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                          _P, _P], _I),
     },
     "align_dp.cu": {
         "mg_align_dp_scratch_ints": ([_LL, _I], _LL),

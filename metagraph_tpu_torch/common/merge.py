@@ -5,7 +5,9 @@ PyTorch counterpart of ``metagraph_tpu/common/merge.py``:
 
   * ``partition_compact`` — stable compaction of kept entries to the
     front (replaces the Pallas ``_partition_call``); hand-written CUDA in
-    ``csrc/partition.cu``; plain version ``packed.compact``.
+    ``csrc/partition.cu``, one launch per call (tiles in order, a one-bin
+    decoupled look-back for the kept prefix, the PAD tail written by the
+    dropped entries); plain version ``packed.compact``.
   * ``merge_sorted`` — merge of two sorted lane arrays with payloads
     (replaces the Pallas ``_merge_call``); hand-written CUDA in
     ``csrc/merge.cu``; plain version a stable sort of the concatenation.
@@ -13,22 +15,30 @@ PyTorch counterpart of ``metagraph_tpu/common/merge.py``:
     bitonic kernel was not.
   * ``sort_packed`` — full sort of lanes with payloads (replaces the JAX
     ``sort_packed``: leaf sorts, then segmented ``_merge_call`` levels);
-    hand-written CUDA in ``csrc/sort.cu`` (bitonic leaf tiles, then
-    merge levels); plain version ``packed.sort``. Both are stable, where
-    the TPU's was not, so the two agree bit for bit, payloads included.
+    hand-written CUDA in ``csrc/sort.cu``: an LSD radix sort over 8-bit
+    digits. One launch counts every digit's histogram; the host copies
+    them back (one small synchronising copy per sort) and
+    ``radix_passes`` keeps the digits on which the keys differ; then one
+    launch per such digit ranks each tile stably, finds its offsets by
+    decoupled look-back (``csrc/lookback.cuh``, shared with the
+    partition) and scatters. PAD is its own bin, after 0xFF. Plain
+    version ``packed.sort``. Both are stable, where the TPU's was not,
+    so the two agree bit for bit, payloads included.
 
 Each wrapper dispatches on the device of the tensor it is given and on
 nothing else: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel (or raises). ``partition_launches`` and
 ``merge_launches`` count kernel launches, one per wrapper call that
 launched, so a run can show that its main path went through them;
-``sort_launches`` counts ``sort_packed`` the same way.
+``sort_launches`` counts ``sort_packed`` the same way, and
+``sort_digit_passes`` the radix passes its launches ran.
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import _cuda, packed
@@ -36,6 +46,7 @@ from . import _cuda, packed
 partition_launches = 0
 merge_launches = 0
 sort_launches = 0
+sort_digit_passes = 0
 
 _MAX_LANES = 8
 _MAX_EXTRAS = 2
@@ -96,7 +107,8 @@ def _partition_cuda(x, keep, capacity, extras, extra_fill):
     eouts = [torch.empty((capacity,), dtype=e.dtype, device=dev)
              for e in extras]
     tile = lib.mg_partition_tile()
-    scratch = torch.empty((max(-(-n // tile), 1),), dtype=torch.int32,
+    # look-back status words, then the tile counter
+    scratch = torch.empty((-(-n // tile) + 1,), dtype=torch.int64,
                           device=dev)
     count = torch.empty((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):          # the runtime launches on it
@@ -200,8 +212,44 @@ def sort_packed_plain(x: torch.Tensor, *extras: torch.Tensor):
     return packed.sort(x, *extras)
 
 
+def radix_passes(hist, n_pad: int) -> list:
+    """The digits a radix sort must run, least significant first.
+
+    ``hist`` is (4 L, 256): row d counts the non-PAD keys by digit d
+    (digit 0 = the low byte of the last lane); ``n_pad`` counts the PAD
+    keys. A digit on which every non-PAD key falls in one bin leaves the
+    order as it is and is dropped. PAD is a bin of its own after 0xFF in
+    every pass, so when no digit is left but PADs and other keys are
+    both present, one pass (digit 0) still moves the PADs last; with no
+    digit left otherwise, the sorted array is a copy."""
+    hist = np.asarray(hist)
+    run = np.flatnonzero(np.count_nonzero(hist, axis=1) > 1).tolist()
+    if not run and n_pad and hist[0].sum():
+        run = [0]
+    return run
+
+
+def _sort_passes(lib, x, extras, bufs, hist, passes, n_pad, status,
+                 stream):
+    """One launch per digit; every pass moves all lanes and payloads,
+    ping-ponging between the two ``bufs`` so that the last pass lands in
+    the first."""
+    L, n = x.shape
+    src, src_e = x, extras
+    for i, digit in enumerate(passes):
+        dst, dst_e = bufs[(len(passes) - 1 - i) % 2]
+        # the first pass tests every lane for PAD; later ones, and one
+        # without PADs, know them by position
+        _cuda.check(lib.mg_sort_pass(
+            src.data_ptr(), n, L, *_pad_ptrs(src_e), len(extras),
+            dst.data_ptr(), *_pad_ptrs(dst_e), hist.data_ptr(), digit,
+            int(i == 0 and n_pad > 0), status.data_ptr(), stream),
+            "sort_packed pass")
+        src, src_e = dst, dst_e
+
+
 def _sort_cuda(x, extras):
-    global sort_launches
+    global sort_launches, sort_digit_passes
     _check_cuda_args("sort_packed", [x], extras, len(extras))
     L, n = x.shape
     if any(e.shape != (n,) for e in extras):
@@ -209,21 +257,35 @@ def _sort_cuda(x, extras):
     dev = x.device
     x = x.contiguous()
     extras = [e.contiguous() for e in extras]
-    lib = _cuda.lib()
     out = torch.empty((L, n), dtype=packed.LANE_DTYPE, device=dev)
     eouts = [torch.empty_like(e) for e in extras]
-    # ping-pong scratch for the merge levels (none for a single leaf)
-    levels = n > lib.mg_sort_leaf()
-    tmp = torch.empty_like(out) if levels else None
-    etmps = [torch.empty_like(e) for e in extras] if levels else []
-    with torch.cuda.device(dev):
-        status = lib.mg_sort(
-            x.data_ptr(), n, L, *_pad_ptrs(extras), len(extras),
-            out.data_ptr(), *_pad_ptrs(eouts), _ptr(tmp), *_pad_ptrs(etmps),
-            torch.cuda.current_stream(dev).cuda_stream)
-    _cuda.check(status, "sort_packed")
-    if n:
+    if n == 0:
+        return out, tuple(eouts)
+    lib = _cuda.lib()
+    hist = torch.empty((4 * L * 256 + 1,), dtype=torch.int64, device=dev)
+    # the passes' scratch, allocated before the synchronising copy so that
+    # the first pass follows it at once: the ping-pong buffers, and the
+    # look-back status words with the tile counter after them
+    bufs = [(out, eouts), (torch.empty_like(out),
+                           [torch.empty_like(e) for e in extras])]
+    status = torch.empty((-(-n // lib.mg_sort_tile(L)) * 257 + 1,),
+                         dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):          # the runtime launches on it
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _cuda.check(lib.mg_sort_hist(x.data_ptr(), n, L, hist.data_ptr(),
+                                     stream), "sort_packed histogram")
         sort_launches += 1
+        h = hist.cpu().numpy()            # the one synchronising copy
+        n_pad = int(h[-1])
+        passes = radix_passes(h[:-1].reshape(4 * L, 256), n_pad)
+        if not passes:
+            out.copy_(x)
+            for eo, e in zip(eouts, extras):
+                eo.copy_(e)
+            return out, tuple(eouts)
+        _sort_passes(lib, x, extras, bufs, hist, passes, n_pad, status,
+                     stream)
+        sort_digit_passes += len(passes)
     return out, tuple(eouts)
 
 

@@ -7,181 +7,171 @@
 // payloads past it are `extra_fill`; entries at or past `capacity` are
 // dropped, while the count written back is the TRUE count.
 //
-// What bounds it on the card: memory bandwidth. It reads
-// (L+E)*4*N + N bytes (the keep mask twice: N more) and writes
-// (L+E)*4*capacity bytes, with no arithmetic to speak of. The design
-// therefore streams every array once, coalesced, in three launches:
-//   1. count: per block of TILE entries, warp __ballot_sync + __popc;
-//   2. scan: one block turns the block counts into exclusive offsets
-//      and writes the true count (a device int32, so the host syncs
-//      only where it needs the number);
-//   3. scatter: each block re-ranks its tile round by round (ballot
-//      rank inside the warp + warp totals in shared memory), which keeps
-//      the order stable, and writes kept entries to offset + rank.
-// A fourth launch fills [min(count, capacity), capacity) with PAD and
-// extra_fill, reading the count from device memory.
+// What bounds it on the card: memory bandwidth. It reads (L+E)*4*N + N
+// bytes and writes (L+E)*4*capacity bytes, with no arithmetic to speak
+// of. The design streams every array once, coalesced, in ONE launch:
+//   * tiles are taken in order (lookback.cuh); a tile reads its keep
+//     bytes once, 16 per thread in one 16-byte load, counts them, ranks
+//     them by a block scan and keeps each entry's rank in shared memory;
+//   * a one-bin decoupled look-back (one warp reads 32 earlier tiles at a
+//     time) gives the kept entries of the earlier tiles, so kept entry i
+//     goes to (that prefix) + (its rank); the tile's kept entries gather
+//     in shared memory and leave as one contiguous run;
+//   * the tail needs no count: the dropped entries write PAD and
+//     extra_fill from the end down, the tile's as one run ending at
+//     n - (dropped entries of earlier tiles); together they cover
+//     exactly [count, n);
+//   * blocks past the last tile fill [n, capacity) when capacity > n;
+//   * every write at or past capacity is skipped, and the last tile's
+//     inclusive prefix is the count.
 // The TPU kernel's bit-shift compaction rounds, MXU prefix matmul and
 // SMEM carry existed because a TPU grid runs in order; CUDA blocks do
-// not, so the cross-block order comes from the scan instead.
+// not, so the order across tiles comes from the look-back instead.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 8;                    // rounds per block
-constexpr int kTile = kThreads * kItems;     // entries per block
-constexpr int kWarps = kThreads / 32;
+constexpr int kItems = 16;                   // keep bytes per thread
+constexpr int kTile = kThreads * kItems;     // entries per tile
 constexpr int kMaxLanes = 8;
-constexpr int kScanThreads = 1024;
 
-__global__ void count_kernel(const uint8_t* __restrict__ keep, long long n,
-                             int* __restrict__ block_counts) {
-  __shared__ int warp_tot[kWarps];
-  const long long base = (long long)blockIdx.x * kTile;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int acc = 0;
-  for (int it = 0; it < kItems; ++it) {
-    const long long i = base + (long long)it * kThreads + threadIdx.x;
-    const bool k = i < n && keep[i] != 0;
-    const unsigned bal = __ballot_sync(0xffffffffu, k);
-    acc += __popc(bal);
-  }
-  if (lane == 0) warp_tot[warp] = acc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < kWarps; ++w) s += warp_tot[w];
-    block_counts[blockIdx.x] = s;
-  }
-}
+using mg::Word;
 
-// One block: exclusive scan of `g` block counts in place; total -> *count.
-__global__ void scan_kernel(int* __restrict__ counts, int g,
-                            int* __restrict__ count_out) {
-  __shared__ int part[kScanThreads];
-  const int per = (g + kScanThreads - 1) / kScanThreads;
-  const int lo = threadIdx.x * per;
-  const int hi = min(lo + per, g);
-  int s = 0;
-  for (int i = lo; i < hi; ++i) s += counts[i];
-  part[threadIdx.x] = s;
-  __syncthreads();
-  // Hillis-Steele inclusive scan over the per-thread sums
-  for (int off = 1; off < kScanThreads; off <<= 1) {
-    const int v = threadIdx.x >= off ? part[threadIdx.x - off] : 0;
-    __syncthreads();
-    part[threadIdx.x] += v;
-    __syncthreads();
-  }
-  int run = threadIdx.x ? part[threadIdx.x - 1] : 0;
-  for (int i = lo; i < hi; ++i) {
-    const int c = counts[i];
-    counts[i] = run;
-    run += c;
-  }
-  if (threadIdx.x == kScanThreads - 1) *count_out = part[kScanThreads - 1];
-}
+__global__ void __launch_bounds__(kThreads)
+partition_kernel(const uint32_t* __restrict__ lanes, int L, long long n,
+                 const uint8_t* __restrict__ keep,
+                 const uint32_t* __restrict__ ex0,
+                 const uint32_t* __restrict__ ex1, int n_extra,
+                 uint32_t* __restrict__ out, uint32_t* __restrict__ oex0,
+                 uint32_t* __restrict__ oex1, long long capacity,
+                 uint32_t extra_fill, Word* __restrict__ status,
+                 unsigned* __restrict__ counter, int* __restrict__ count_out,
+                 long long tiles) {
+  // kept entries: their rank in the tile; dropped: -1
+  __shared__ short info[kTile];
+  __shared__ uint32_t stage[kTile];
+  __shared__ int scan[kThreads / 32 + 1];
+  __shared__ long long kept_before;
 
-__global__ void scatter_kernel(const uint32_t* __restrict__ lanes, int L,
-                               long long n, const uint8_t* __restrict__ keep,
-                               const uint32_t* __restrict__ ex0,
-                               const uint32_t* __restrict__ ex1, int n_extra,
-                               uint32_t* __restrict__ out,
-                               uint32_t* __restrict__ oex0,
-                               uint32_t* __restrict__ oex1,
-                               long long capacity,
-                               const int* __restrict__ offsets) {
-  __shared__ int warp_tot[kWarps];
-  __shared__ int warp_off[kWarps + 1];
-  const long long base = (long long)blockIdx.x * kTile;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  long long run = offsets[blockIdx.x];
-  for (int it = 0; it < kItems; ++it) {
-    const long long i = base + (long long)it * kThreads + threadIdx.x;
-    const bool k = i < n && keep[i] != 0;
-    const unsigned bal = __ballot_sync(0xffffffffu, k);
-    if (lane == 0) warp_tot[warp] = __popc(bal);
-    __syncthreads();
+  const unsigned tile = mg::take_tile(counter);
+  if (tile >= tiles) {                       // fill [n, capacity)
+    const long long p0 = n + (long long)(tile - tiles) * kTile;
+    for (long long p = p0 + threadIdx.x; p < min(p0 + kTile, capacity);
+         p += kThreads) {
+      for (int j = 0; j < L; ++j) out[j * capacity + p] = 0xFFFFFFFFu;
+      if (n_extra > 0) oex0[p] = extra_fill;
+      if (n_extra > 1) oex1[p] = extra_fill;
+    }
+    return;
+  }
+  const long long base = (long long)tile * kTile;
+  const int cnt = (int)min((long long)kTile, n - base);
+
+  // this thread's keep bytes: entries [16 t, 16 t + 16) of the tile
+  const int first = threadIdx.x * kItems;
+  uint8_t kb[kItems];
+  if (first + kItems <= cnt &&
+      ((reinterpret_cast<uintptr_t>(keep + base) & 15) == 0)) {
+    const uint4 v = *reinterpret_cast<const uint4*>(keep + base + first);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) kb[j] = (w[j / 4] >> (8 * (j % 4))) & 0xFF;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      kb[j] = first + j < cnt ? keep[base + first + j] : 0;
+    }
+  }
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) c += kb[j] != 0;
+  int tile_kept;
+  int r = mg::block_exclusive_scan<kThreads>(c, scan, &tile_kept);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const int p = first + j;
+    if (p < cnt) info[p] = kb[j] ? (short)r++ : (short)-1;
+  }
+  if (threadIdx.x < 32) {                    // warp 0: the look-back
+    if (threadIdx.x == 0) mg::publish(status, 1, tile, 0, tile_kept);
+    const long long before = (long long)mg::lookback_warp(
+        status, 1, tile, 0, (Word)tile_kept);
     if (threadIdx.x == 0) {
-      int s = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        warp_off[w] = s;
-        s += warp_tot[w];
-      }
-      warp_off[kWarps] = s;
+      kept_before = before;
+      if (tile == tiles - 1) *count_out = (int)(before + tile_kept);
     }
-    __syncthreads();
-    if (k) {
-      const long long pos =
-          run + warp_off[warp] + __popc(bal & ((1u << lane) - 1u));
-      if (pos < capacity) {
-        for (int j = 0; j < L; ++j) out[j * capacity + pos] = lanes[j * n + i];
-        if (n_extra > 0) oex0[pos] = ex0[i];
-        if (n_extra > 1) oex1[pos] = ex1[i];
-      }
-    }
-    run += warp_off[kWarps];
-    __syncthreads();
   }
-}
-
-__global__ void fill_kernel(int L, uint32_t* __restrict__ out,
-                            uint32_t* __restrict__ oex0,
-                            uint32_t* __restrict__ oex1, int n_extra,
-                            long long capacity, uint32_t extra_fill,
-                            const int* __restrict__ count) {
-  const long long start = *count;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       p < capacity; p += stride) {
-    if (p < start) continue;
-    for (int j = 0; j < L; ++j) out[j * capacity + p] = 0xFFFFFFFFu;
-    if (n_extra > 0) oex0[p] = extra_fill;
-    if (n_extra > 1) oex1[p] = extra_fill;
+  __syncthreads();
+  // array by array: the tile's kept entries gather in shared memory in
+  // their compacted order and leave as one contiguous run; the dropped
+  // entries' PAD / extra_fill as another
+  const long long kept0 = kept_before;
+  const long long dropped0 = base - kept0;
+  const int tile_dropped = cnt - tile_kept;
+  for (int a = 0; a < L + n_extra; ++a) {
+    const uint32_t* src = a < L ? lanes + a * n : (a == L ? ex0 : ex1);
+    uint32_t* dst = a < L ? out + a * capacity : (a == L ? oex0 : oex1);
+    const uint32_t fill = a < L ? 0xFFFFFFFFu : extra_fill;
+#pragma unroll
+    for (int it = 0; it < kItems; ++it) {
+      const int p = threadIdx.x + it * kThreads;
+      if (p < cnt && info[p] >= 0) stage[info[p]] = src[base + p];
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < tile_kept && kept0 + k < capacity;
+         k += kThreads) {
+      dst[kept0 + k] = stage[k];
+    }
+    const long long d0 = n - dropped0 - tile_dropped;
+    for (int k = threadIdx.x; k < tile_dropped && d0 + k < capacity;
+         k += kThreads) {
+      dst[d0 + k] = fill;
+    }
+    __syncthreads();
   }
 }
 
 }  // namespace
 
-// Entries per block: the wrapper sizes block_counts as ceil(n / tile).
+// Entries per tile: the wrapper sizes the status words as
+// ceil(n / tile) + 1 int64 (the look-back's, then the tile counter).
 extern "C" int mg_partition_tile() { return kTile; }
 
 // lanes (L, n) and payloads (n,) in; out (L, capacity) and payloads
-// (capacity,) out; block_counts holds ceil(n / tile) ints of scratch;
-// *count_out receives the true kept count. Returns cudaGetLastError().
+// (capacity,) out; status holds ceil(n / tile) + 1 int64 of scratch;
+// *count_out receives the true kept count. One kernel launch. Returns
+// the first error (cudaError_t), 0 on success.
 extern "C" int mg_partition(const void* lanes, int L, long long n,
                             const void* keep, const void* ex0,
                             const void* ex1, int n_extra, void* out,
                             void* oex0, void* oex1, long long capacity,
-                            unsigned int extra_fill, void* block_counts,
+                            unsigned int extra_fill, void* status,
                             void* count_out, void* stream) {
-  if (L < 1 || L > kMaxLanes || n_extra < 0 || n_extra > 2) {
+  if (L < 1 || L > kMaxLanes || n_extra < 0 || n_extra > 2 || n < 0 ||
+      capacity < 0 || n >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const long long g = (n + kTile - 1) / kTile;
-  int* bc = (int*)block_counts;
-  int* cnt = (int*)count_out;
-  if (g > 0) {
-    count_kernel<<<(unsigned)g, kThreads, 0, s>>>((const uint8_t*)keep, n, bc);
-    scan_kernel<<<1, kScanThreads, 0, s>>>(bc, (int)g, cnt);
-    scatter_kernel<<<(unsigned)g, kThreads, 0, s>>>(
-        (const uint32_t*)lanes, L, n, (const uint8_t*)keep,
-        (const uint32_t*)ex0, (const uint32_t*)ex1, n_extra, (uint32_t*)out,
-        (uint32_t*)oex0, (uint32_t*)oex1, capacity, bc);
-  } else {
-    cudaMemsetAsync(cnt, 0, sizeof(int), s);
+  const long long tiles = (n + kTile - 1) / kTile;
+  const long long fills =
+      capacity > n ? (capacity - n + kTile - 1) / kTile : 0;
+  cudaError_t err = cudaMemsetAsync(
+      status, 0, (size_t)(tiles + 1) * sizeof(Word), s);
+  if (err == cudaSuccess && tiles == 0) {
+    err = cudaMemsetAsync(count_out, 0, sizeof(int), s);
   }
-  if (capacity > 0) {
-    long long blocks = (capacity + kThreads - 1) / kThreads;
-    if (blocks > 65535LL * 16) blocks = 65535LL * 16;
-    fill_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-        L, (uint32_t*)out, (uint32_t*)oex0, (uint32_t*)oex1, n_extra,
-        capacity, extra_fill, cnt);
-  }
+  if (err != cudaSuccess) return (int)err;
+  if (tiles + fills == 0) return (int)cudaSuccess;
+  Word* st = (Word*)status;
+  partition_kernel<<<(unsigned)(tiles + fills), kThreads, 0, s>>>(
+      (const uint32_t*)lanes, L, n, (const uint8_t*)keep,
+      (const uint32_t*)ex0, (const uint32_t*)ex1, n_extra, (uint32_t*)out,
+      (uint32_t*)oex0, (uint32_t*)oex1, capacity, extra_fill, st,
+      (unsigned*)(st + tiles), (int*)count_out, tiles);
   return (int)cudaGetLastError();
 }

@@ -149,6 +149,17 @@ def main():
               f"{busy:.1f} ms, idle share {1 - busy / wall:.3f}")
         print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                         row_limit=25, max_name_column_width=60))
+        # the hand-written kernels' share (sort_packed: its histogram and
+        # pass kernels)
+        for label, keys in (("sort_packed", ("radix_hist_kernel",
+                                             "radix_pass_kernel")),
+                            ("partition_compact", ("partition_kernel",)),
+                            ("merge_sorted", ("splits_kernel", "merge_kernel"))):
+            ev = [e for e in kern if any(k in e.name for k in keys)]
+            ms = sum(e.time_range.end - e.time_range.start
+                     for e in ev) / 1e3
+            print(f"{label}: {len(ev)} kernels, {ms:.1f} ms device, "
+                  f"{ms / busy:.3f} of device busy time")
         prof.export_chrome_trace(os.path.join(args.out, f"{name}_k{K}_"
                                               f"{mode}.json"))
         summary[name] = {"wall_ms": wall, "device_busy_ms": busy}

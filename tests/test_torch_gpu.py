@@ -51,6 +51,8 @@ PART_CASES = [
     (4096, 4096, 0.0, 2, 0),               # nothing kept
     (4096, 4096, 1.0, 8, 2),               # everything kept, 8 lanes
     (0, 64, 0.5, 2, 1),                    # empty input
+    (4096 * 5 + 9, 4096 * 5 + 9, 0.5, 1, 1),   # n not a multiple of 16
+    (17, 40, 0.5, 2, 2),                   # one short tile, capacity > n
 ]
 
 
@@ -96,6 +98,22 @@ def test_merge_kernel_matches_plain(dev, na, nb, L, E):
     _same([got, *ge], [want, *we])
 
 
+def test_partition_kernel_unaligned_mask(dev):
+    """A keep mask that starts off a 16-byte boundary (a view at offset
+    1) takes the byte loads; the result is the same."""
+    rng = np.random.default_rng(3)
+    n = 4096 * 3 + 5
+    x = packed.lanes_from_numpy(
+        rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(np.uint32),
+        dev)
+    keep = torch.from_numpy(rng.random(n + 1) < 0.4).to(dev)[1:]
+    got, gc, _ = merge.partition_compact(x, keep, n)
+    want, wc, _ = merge.partition_compact_plain(x, keep, n)
+    torch.cuda.synchronize()
+    assert int(gc) == int(wc)
+    _same([got], [want])
+
+
 def test_merge_kernel_duplicates_and_pad(dev):
     """Heavy duplicates across both sides and all-PAD inputs: the stable
     A-first order must match the plain version's payloads exactly."""
@@ -138,21 +156,31 @@ def _keys(rng, n, L, hi, dev):
 
 
 SORT_CASES = [
-    # n, L, payloads, lane values below
+    # n (or a size in pass tiles at L lanes), L, payloads, lane values below
     (0, 2, 1, 1 << 32),
     (1, 4, 2, 1 << 32),
-    (2047, 4, 1, 1 << 32),                 # one partial leaf
-    (2048, 2, 0, 1 << 32),                 # one full leaf, no level
-    (2049, 3, 2, 7),                       # a lone trailing run of 1
-    (3 * 2048 + 5, 2, 1, 1 << 32),         # 4 runs, ragged last
-    (100_003, 4, 1, 5),                    # heavy duplicates, 6 levels
-    ((1 << 20) + 7, 2, 0, 1 << 32),
+    (2, 3, 1, 1 << 32),
+    ("tile-1", 4, 1, 1 << 32),             # one partial tile
+    ("tile", 2, 0, 1 << 32),               # one full tile
+    ("tile+1", 3, 2, 7),                   # a last tile of one key
+    ("5tile+100", 2, 1, 1 << 32),          # many tiles, ragged end
+    (100_003, 4, 1, 5),                    # heavy duplicates
+    ((1 << 20) + 13, 2, 0, 1 << 32),
     (5000, 8, 2, 3),                       # 8 lanes
 ]
 
 
+def _size(n, L):
+    if isinstance(n, int):
+        return n
+    tile = merge._cuda.lib().mg_sort_tile(L)
+    return {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+            "5tile+100": 5 * tile + 100}[n]
+
+
 @pytest.mark.parametrize("n,L,E,hi", SORT_CASES)
 def test_sort_kernel_matches_plain(dev, n, L, E, hi):
+    n = _size(n, L)
     rng = np.random.default_rng(n + L)
     x = _keys(rng, n, L, hi, dev)
     x[:, rng.random(n) < 0.05] = packed.PAD_LANE
@@ -166,23 +194,48 @@ def test_sort_kernel_matches_plain(dev, n, L, E, hi):
     _same([got, *ge], [want, *we])
 
 
-@pytest.mark.parametrize("kind", ["equal", "pad", "sorted", "reversed"])
+SPECIAL_KINDS = {
+    # kind: the digit passes the sort must run (None: not checked)
+    "equal": 0, "pad": 0, "sorted": None, "reversed": None,
+    "collect": 5,           # k = 20 in 2 bits: lane 0 < 256, 3 digits drop
+    "ff-key": 4,            # keys 0xFF on every digit that runs, and PAD
+}
+
+
+@pytest.mark.parametrize("kind", list(SPECIAL_KINDS))
 def test_sort_kernel_special_inputs(dev, kind):
-    """Stability on all-equal keys, all PAD, sorted and reversed input."""
-    n, L = 3 * 2048 + 777, 3
+    """Stability on all-equal keys, all PAD, sorted and reversed input;
+    constant digits skipped, and a non-PAD key that reads 0xFF on every
+    digit that runs kept before the PADs."""
+    n, L = 3 * 4096 + 777, 3
     rng = np.random.default_rng(5)
     if kind == "equal":
         x = packed.lanes_from_numpy(np.full((L, n), 12345, np.uint32), dev)
     elif kind == "pad":
         x = packed.full_pad(n, L, dev)
+    elif kind == "collect":
+        lanes = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(
+            np.uint32)
+        lanes[0] &= 0xFF
+        lanes[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+        x = packed.lanes_from_numpy(lanes, dev)
+    elif kind == "ff-key":
+        lanes = np.zeros((L, n), np.uint32)
+        lanes[-1] = rng.integers(0, 3, n).astype(np.uint32) * 0x7F7F7F7F
+        lanes[-1, rng.random(n) < 0.2] = 0xFFFFFFFF
+        lanes[:, rng.random(n) < 0.2] = 0xFFFFFFFF
+        x = packed.lanes_from_numpy(lanes, dev)
     else:
         x, _ = merge.sort_packed_plain(_keys(rng, n, L, 1 << 32, dev))
         if kind == "reversed":
             x = x.flip(1).contiguous()
     pay = torch.arange(n, dtype=torch.int32, device=dev)
+    p0 = merge.sort_digit_passes
     got, (gp,) = merge.sort_packed(x, pay)
     want, (wp,) = merge.sort_packed_plain(x, pay)
     _same([got, gp], [want, wp])
+    if SPECIAL_KINDS[kind] is not None:
+        assert merge.sort_digit_passes - p0 == SPECIAL_KINDS[kind]
 
 
 def test_sort_kernel_rejects_bad_input(dev):

@@ -101,3 +101,97 @@ def test_sort_packed_empty_and_one():
         x = packed.full_pad(n, 2, "cpu")
         got, (gp,) = merge.sort_packed(x, torch.arange(n, dtype=torch.int32))
         assert got.shape == (2, n) and gp.shape == (n,)
+
+
+def _radix_emulation(lanes, pays):
+    """The CUDA sort's algorithm on the host: the histogram of every
+    8-bit digit over the non-PAD keys, ``merge.radix_passes`` for the
+    digits to run, then per digit one stable sort by bin, PAD as bin
+    256. Returns (lanes, payloads, digits run)."""
+    L, n = lanes.shape
+    pad = np.all(lanes == 0xFFFFFFFF, axis=0)
+    digits = np.stack([(lanes[L - 1 - d // 4] >> np.uint32(8 * (d % 4)))
+                       & np.uint32(0xFF) for d in range(4 * L)])
+    hist = np.stack([np.bincount(digits[d][~pad], minlength=256)
+                     for d in range(4 * L)])
+    passes = merge.radix_passes(hist, int(pad.sum()))
+    perm = np.arange(n)
+    for d in passes:
+        bins = np.where(pad[perm], 256, digits[d][perm]).astype(np.int64)
+        perm = perm[torch.sort(torch.from_numpy(bins), stable=True)
+                    .indices.numpy()]
+    return lanes[:, perm], [p[perm] for p in pays], passes
+
+
+def _radix_input(kind, L, n, rng):
+    """Keys of one shape the pass plan must handle, and the digits it
+    must run (None: not checked)."""
+    lanes = rng.integers(0, 1 << 32, (L, n), dtype=np.uint64).astype(
+        np.uint32)
+    want = list(range(4 * L))
+    if kind == "collect":            # k = 20 in 2 bits: 40 bits in 64
+        lanes[0] &= 0xFF
+        want = [0, 1, 2, 3, 4]
+    elif kind == "top-constant":     # long constant prefix, PAD mixed in
+        lanes[:-1] = 0x01020304
+        lanes[-1] &= 0x00FF00FF
+        lanes[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+        want = [0, 2]
+    elif kind == "equal":
+        lanes[:] = 77
+        want = []
+    elif kind == "pad":
+        lanes[:] = 0xFFFFFFFF
+        want = []
+    elif kind == "equal+pad":        # no digit left, PAD interleaved
+        lanes[:] = 5
+        lanes[:, rng.random(n) < 0.3] = 0xFFFFFFFF
+        want = [0]
+    elif kind == "ff-key":           # a non-PAD key reads 0xFF on every
+        lanes[:-1] = 0               # digit that runs, PADs around it
+        lanes[-1] = rng.integers(0, 3, n).astype(np.uint32) * 0x7F7F7F7F
+        lanes[-1, rng.random(n) < 0.2] = 0xFFFFFFFF
+        lanes[:, rng.random(n) < 0.2] = 0xFFFFFFFF
+        want = [0, 1, 2, 3]
+    elif kind == "random+pad":
+        lanes[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+    return lanes, want
+
+
+RADIX_CASES = [
+    # kind, L, payloads
+    ("random", 1, 0), ("random", 2, 1), ("random+pad", 3, 2),
+    ("random+pad", 4, 1), ("collect", 2, 0), ("collect", 2, 2),
+    ("top-constant", 4, 1), ("top-constant", 3, 0), ("equal", 2, 1),
+    ("equal", 4, 0), ("pad", 1, 2), ("pad", 3, 1), ("equal+pad", 2, 2),
+    ("equal+pad", 1, 0), ("ff-key", 2, 1), ("ff-key", 4, 2),
+]
+
+
+@pytest.mark.parametrize("kind,L,E", RADIX_CASES)
+def test_radix_pass_plan_matches_jax_sort(kind, L, E):
+    """The radix sort's plan (``merge.radix_passes`` over the digit
+    histograms, PAD as bin 256) run as stable sorts by bin equals the JAX
+    package's stable ``packed.sort`` bit for bit, payloads included, and
+    runs exactly the digits on which the keys differ."""
+    rng = np.random.default_rng(sum(map(ord, kind)) + 10 * L + E)
+    n = 3001
+    lanes, want_passes = _radix_input(kind, L, n, rng)
+    pays = [rng.integers(-2**31, 2**31, n).astype(np.int32) for _ in range(E)]
+    got, gps, passes = _radix_emulation(lanes, pays)
+    assert passes == want_passes
+    want, wps = jpacked.sort(jnp.asarray(lanes),
+                             *[jnp.asarray(p) for p in pays])
+    np.testing.assert_array_equal(got, np.asarray(want))
+    for g, w in zip(gps, wps):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("n", [0, 1])
+def test_radix_pass_plan_tiny(n):
+    """No key or one key: nothing to run, the sort is a copy."""
+    hist = np.zeros((8, 256), np.int64)
+    if n:
+        hist[:, 0] = 1
+    assert merge.radix_passes(hist, 0) == []
+    assert merge.radix_passes(np.zeros((8, 256), np.int64), n) == []
