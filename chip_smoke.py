@@ -11,9 +11,10 @@ Phases (each raises on failure; the process exits non-zero):
      bit for bit, at the main path's shapes (2^25 entries for the build
      kernels, the sort at L = 2, 4 and 4 with a payload, and on the lanes
      the k = 20 collect sorts, with the radix passes that ran; 2^14 pairs
-     of 112 x 128 for the alignment DP) and at edge cases; prints the
-     median times of the kernel, of its plain version and (where one
-     exists) of one PyTorch library call, and its bound.
+     of 112 x 128 for the alignment DP, whose wave route is timed in
+     turns with its long route) and at edge cases; prints the median
+     times of the kernel, of its plain version and (where one exists) of
+     one PyTorch library call, and its bound.
   3. the main paths, each with every kernel's launch counter zeroed just
      before and read just after it:
      a. build: build_boss_from_codes on 2^25 random ACGT codes, k = 31
@@ -367,7 +368,7 @@ def dp_pairs(rng, R, LQ, LR, dev, copy_frac=0.25):
     return [torch.from_numpy(x).to(dev) for x in (q, r, ql, rl)]
 
 
-def check_dp(args, what, sub_tt=None, time_it=False, **pen):
+def check_dp(args, what, sub_tt=None, **pen):
     import torch
     from metagraph_tpu_torch.align import pallas_dp
     pen = dict(dict(match=2, tpen=3, tvpen=3, open_p=5, ext_p=2), **pen)
@@ -382,27 +383,50 @@ def check_dp(args, what, sub_tt=None, time_it=False, **pen):
     if err:
         raise AssertionError(f"batch_align {what}: kernel differs from plain "
                              f"(err {err})")
-    if not time_it:
-        return err
-    ms = cuda_ms(lambda: pallas_dp.batch_align_ends(*args, **pen))
-    plain = cuda_ms(lambda: pallas_dp.align_plain(
-        *args, table, pen["open_p"], pen["ext_p"], True))
-    q, r = args[0], args[1]
-    cells = pallas_dp.dp_cells(args[2], args[3], q.shape[1], r.shape[1])
-    nbytes = 4 * q.shape[0] * (q.shape[1] + r.shape[1] + 2 + 3)
-    return err, ms, plain, None, bound(nbytes, cells * pallas_dp.OPS_PER_CELL)
+    return err
+
+
+def dp_routes():
+    from metagraph_tpu_torch.align import pallas_dp
+    return (pallas_dp.dp_launches - pallas_dp.dp_long_launches,
+            pallas_dp.dp_long_launches)
 
 
 def phase_align_dp(dev):
     """pallas_dp against its plain version: the main path's shape and the
-    edge cases, bit-exact for the ends and the scores."""
+    edge cases, bit-exact for the ends and the scores, on both routes;
+    the wave route timed beside the long route (the first design) on the
+    same pairs."""
+    from metagraph_tpu_torch.align import pallas_dp
     rng = np.random.default_rng(SEED + 3)
     R, LQ, LR = 1 << 14, 112, 128
-    res = check_dp(dp_pairs(rng, R, LQ, LR, dev), "main shape", time_it=True)
-    err, ms, plain, _, (bms, _) = res
-    log(f"pallas_dp ends R=2^14 LQ={LQ} LR={LR}: bit-exact (ends and "
-        f"scores), kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
-        f"{bms:.4f} ms (median of 5)")
+    args = dp_pairs(rng, R, LQ, LR, dev)
+    err = check_dp(args, "main shape")
+    table = pallas_dp.score_table(2, 3, 3, None, dev)
+
+    def run(wave):
+        return pallas_dp._align_cuda(*args, table, 5, 2, True, wave)
+
+    old = run(False)
+    if max_abs_err([old], [run(True)]):
+        raise AssertionError("pallas_dp: the long route differs from the "
+                             "wave route at the main shape")
+    # launch-only times in turns: wave, long, long, wave
+    times = [cuda_ms(lambda w=w: run(w)) for w in (True, False, False, True)]
+    # the kernels line keeps the wrapper's time (table built and uploaded
+    # on each call), which takes the wave route at this shape
+    ms = cuda_ms(lambda: pallas_dp.batch_align_ends(*args))
+    plain = cuda_ms(lambda: pallas_dp.align_plain(*args, table, 5, 2, True))
+    cells = pallas_dp.dp_cells(args[2], args[3], LQ, LR)
+    nbytes = 4 * R * (LQ + LR + 2 + 3)
+    bms, by = bound(nbytes, cells * pallas_dp.OPS_PER_CELL)
+    log(f"pallas_dp ends R=2^14 LQ={LQ} LR={LR} ({cells} cells): bit-exact "
+        f"(ends and scores, both routes); batch_align_ends (wave route, "
+        f"with its table upload) {ms:.3f} ms; launch only, in turns, wave "
+        f"route {times[0]:.3f} / {times[3]:.3f} ms, long route (the first "
+        f"design) {times[1]:.3f} / {times[2]:.3f} ms; plain {plain:.3f} ms; "
+        f"bound {bms:.4f} ms (median of 5)")
+    w0, l0 = dp_routes()
     for R in (1, 7, 33):
         check_dp(dp_pairs(rng, R, 40, 50, dev), f"R={R}")
     q, r, ql, rl = dp_pairs(rng, 40, 30, 30, dev)
@@ -411,8 +435,15 @@ def phase_align_dp(dev):
     q[20:25], r[20:25] = 0, 0                     # all-0 codes
     check_dp([q, r, ql, rl], "edge rows")
     check_dp(dp_pairs(rng, 50, 1, 60, dev), "LQ=1")
-    check_dp(dp_pairs(rng, 64, 3000, 3000, dev, copy_frac=0.5),
-             "R=64 LQ=LR=3000 (scratch columns)")
+    # every band of the wave route and the first width of the long one:
+    # qlen + 1 = 32, 33, 64, 65, 128, 129, 256 and 257 on every other pair
+    for rows in (32, 33, 64, 65, 128, 129, 256, 257):
+        q, r, ql, rl = dp_pairs(rng, 64, rows - 1, 150, dev, copy_frac=0.5)
+        ql[::2] = rows - 1
+        check_dp([q, r, ql, rl], f"qlen + 1 = {rows}")
+    long_args = dp_pairs(rng, 64, 3000, 3000, dev, copy_frac=0.5)
+    check_dp(long_args, "R=64 LQ=LR=3000 (scratch columns)")
+    long_ms = cuda_ms(lambda: pallas_dp.batch_align_ends(*long_args))
     unit = np.full((5, 5), -1, np.int32)
     np.fill_diagonal(unit, 1)
     unit[0, 0] = -1
@@ -420,10 +451,18 @@ def phase_align_dp(dev):
              match=1, tpen=1, tvpen=1, open_p=1, ext_p=1)
     check_dp(dp_pairs(rng, 300, 50, 50, dev), "open < ext", open_p=1,
              ext_p=4)
-    log("pallas_dp edge cases (R 1/7/33, qlen 0, rlen 0, identical pairs, "
-        "all-0 codes, LQ=1, LQ=LR=3000 in scratch, unit table, open < ext):"
-        " bit-exact")
-    return res
+    check_dp(dp_pairs(rng, 300, 200, 220, dev), "open < ext, 8 rows a lane",
+             open_p=1, ext_p=4)
+    w1, l1 = dp_routes()
+    if w1 <= w0 or l1 <= l0:
+        raise AssertionError(f"pallas_dp edge cases: a route was not "
+                             f"launched (wave {w1 - w0}, long {l1 - l0})")
+    log(f"pallas_dp edge cases (R 1/7/33, qlen 0, rlen 0, identical pairs, "
+        f"all-0 codes, LQ=1, qlen + 1 = 32/33/64/65/128/129/256/257, "
+        f"LQ=LR=3000 in scratch, unit table, open < ext at 2 and 8 rows a "
+        f"lane): bit-exact; launches wave {w1 - w0}, long {l1 - l0}; long "
+        f"route at R=64 LQ=LR=3000 {long_ms:.3f} ms (median of 5)")
+    return err, ms, plain, None, (bms, by)
 
 
 # ---------------------------------------------------------------------------
@@ -506,6 +545,7 @@ def zero_launches():
     merge.sort_launches = 0
     merge.sort_digit_passes = 0
     pallas_dp.dp_launches = 0
+    pallas_dp.dp_long_launches = 0
 
 
 def read_launches():
@@ -514,7 +554,8 @@ def read_launches():
     return {"partition_compact": merge.partition_launches,
             "merge_sorted": merge.merge_launches,
             "sort_packed": merge.sort_launches,
-            "pallas_dp": pallas_dp.dp_launches}
+            "pallas_dp": pallas_dp.dp_launches,
+            "pallas_dp_long_route": pallas_dp.dp_long_launches}
 
 
 BUILD_KERNELS = ("partition_compact", "merge_sorted", "sort_packed")
@@ -708,6 +749,10 @@ def phase_align(graph, bq, codes, rng):
     if launches["pallas_dp"] <= 0:
         raise AssertionError("pallas_dp was not launched by the score-only "
                              "alignment")
+    if launches["pallas_dp_long_route"]:
+        # the kernels line times the wave route: the path must take it
+        raise AssertionError("pallas_dp: the score-only alignment took the "
+                             "long route")
     full, fast = out[True], out[False]
     # query --align: the score-only run replaces each read by its best
     # path spelling, then the labels are queried

@@ -9,7 +9,11 @@ row-major first-max rule. The kernel is hand-written CUDA C++ in
 it is its plain PyTorch version, a column sweep over all pairs as
 batched tensor ops. The wrappers dispatch on the device of the tensors
 they are given: a CPU tensor takes the plain version, a CUDA tensor
-launches the kernel (or raises). ``dp_launches`` counts launches.
+launches the kernel (or raises). The kernel has two routes, chosen by
+the query width: up to ``WAVE_MAX_ROWS`` query rows (LQ + 1) the lane
+wavefront over register-held bands, beyond it the one-warp column sweep
+with shared-memory or scratch columns. ``dp_launches`` counts launches,
+``dp_long_launches`` those of the long route.
 
 Substitution scores come from a ``(sigma, sigma)`` table: ``sub_tt``
 when given (unit or BLOSUM62 scoring), else the DNA table built from
@@ -30,13 +34,17 @@ NEG = -(10 ** 8)
 # of a launch (cells * this): Dn = max(H - open, D - ext) 3, Hn = max(diag
 # + sub, Dn) 2, hn + j*ext 1 (shared by the prefix max and the argmax
 # key), the prefix max 1, I = run - j*ext - (open - ext) 2, H = max(Hn, I)
-# 1, the first-max compare 1. csrc/align_dp.cu performs more: its two
-# passes compute hn + j*ext and a running max twice, and it indexes the
-# table and selects on the argmax.
+# 1, the first-max compare 1. csrc/align_dp.cu performs more: it indexes
+# the table and selects on the argmax, and its long route computes
+# hn + j*ext and a running max twice.
 OPS_PER_CELL = 11
 MAX_SIGMA = 32
+# query rows (LQ + 1) the wave route takes: 32 lanes x 8 rows
+# (kWaveRows in csrc/align_dp.cu)
+WAVE_MAX_ROWS = 256
 
 dp_launches = 0
+dp_long_launches = 0
 
 
 def dna_table(match: int, tpen: int, tvpen: int) -> np.ndarray:
@@ -130,8 +138,8 @@ def align_plain(queries: torch.Tensor, refs: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _align_cuda(queries, refs, qlens, rlens, table, open_p, ext_p,
-                with_ends):
-    global dp_launches
+                with_ends, wave):
+    global dp_launches, dp_long_launches
     dev = queries.device
     R, LQ = queries.shape
     LR = refs.shape[1]
@@ -140,18 +148,20 @@ def _align_cuda(queries, refs, qlens, rlens, table, open_p, ext_p,
     if R == 0:
         return out
     lib = _cuda.lib()
-    n_scratch = int(lib.mg_align_dp_scratch_ints(R, LQ))
+    n_scratch = 0 if wave else int(lib.mg_align_dp_scratch_ints(R, LQ))
     scratch = (torch.empty((n_scratch,), dtype=torch.int32, device=dev)
                if n_scratch else None)
     with torch.cuda.device(dev):
         status = lib.mg_align_dp(
             queries.data_ptr(), refs.data_ptr(), qlens.data_ptr(),
             rlens.data_ptr(), R, LQ, LR, table.data_ptr(), table.shape[0],
-            open_p, ext_p, int(with_ends), out.data_ptr(),
+            open_p, ext_p, int(with_ends), int(wave), out.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
     _cuda.check(status, "batch_align")
     dp_launches += 1
+    if not wave:
+        dp_long_launches += 1
     return out
 
 
@@ -182,7 +192,7 @@ def _align(queries, refs, qlens, rlens, match, tpen, tvpen, open_p, ext_p,
         raise ValueError(f"batch_align: no kernel for {dev}")
     _check(queries, refs, qlens, rlens, table)
     return _align_cuda(queries, refs, qlens, rlens, table, open_p, ext_p,
-                       with_ends)
+                       with_ends, queries.shape[1] + 1 <= WAVE_MAX_ROWS)
 
 
 def batch_align_scores(queries: torch.Tensor, refs: torch.Tensor,

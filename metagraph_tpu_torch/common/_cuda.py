@@ -50,7 +50,7 @@ SOURCES = {
     "align_dp.cu": {
         "mg_align_dp_scratch_ints": ([_LL, _I], _LL),
         "mg_align_dp": ([_P, _P, _P, _P, _LL, _I, _I, _P, _I, _I, _I, _I,
-                         _P, _P, _P], _I),
+                         _I, _P, _P, _P], _I),
     },
 }
 

@@ -338,9 +338,15 @@ def expand2to4(lanes2: torch.Tensor, K: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# scans (torch's cumsum/cummax are parallel on the card; the JAX package
-# blocked them only because XLA lowers long 1D scans sequentially)
+# scans. A 1D torch.cumsum on the card goes to CUB's device-wide scan, but
+# torch.cummax has no such path: over a 1D tensor it runs in a single
+# block. The running maximum therefore takes the reference's two-level
+# form, per-row scans over (G, SCAN_BLOCK) rows and a scan of the G row
+# maxima, which gives the card G rows to scan at once.
 # ---------------------------------------------------------------------------
+
+SCAN_BLOCK = 8192
+
 
 def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
     """Inclusive 1D cumsum in the input's dtype."""
@@ -348,10 +354,24 @@ def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def blocked_cummax(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive 1D running maximum."""
-    if x.shape[0] == 0:
-        return x
-    return torch.cummax(x, 0).values
+    """Inclusive 1D running maximum of an integer tensor."""
+    n = x.shape[0]
+    if n <= SCAN_BLOCK:
+        return torch.cummax(x, 0).values if n else x
+    G = -(-n // SCAN_BLOCK)
+    lowest = torch.iinfo(x.dtype).min
+    if G * SCAN_BLOCK == n:
+        rows = x.view(G, SCAN_BLOCK)
+    else:
+        rows = torch.full((G * SCAN_BLOCK,), lowest, dtype=x.dtype,
+                          device=x.device)
+        rows[:n] = x
+        rows = rows.view(G, SCAN_BLOCK)
+    within = torch.cummax(rows, 1).values
+    run = blocked_cummax(within[:, -1].contiguous())
+    offs = torch.cat([run.new_full((1,), lowest), run[:-1]])
+    torch.maximum(within, offs[:, None], out=within)
+    return within.view(-1)[:n]
 
 
 # ---------------------------------------------------------------------------

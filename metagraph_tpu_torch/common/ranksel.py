@@ -236,7 +236,14 @@ def block_counts(seq_pad: torch.Tensor, sigma: int, nb: int) -> torch.Tensor:
     (nb * _BS,) sequence (the pad symbol ``sigma`` is not counted)."""
     blocks = seq_pad.view(nb, _BS)
     hist = torch.stack([torch.sum(blocks == c, dim=1, dtype=torch.int32)
-                        for c in range(sigma)], dim=1)
-    return torch.cat([torch.zeros((1, sigma), dtype=torch.int32,
-                                  device=seq_pad.device),
-                      torch.cumsum(hist, 0, dtype=torch.int32)])
+                        for c in range(sigma)])                # (sigma, nb)
+    # one 1D cumsum over the symbol-major histogram (a device-wide scan
+    # on the card; a scan along dim 0 of (nb, sigma) gets sigma threads),
+    # less each symbol's start. Its running total counts each non-pad
+    # position once, so it stays below nb * _BS and fits int32 wherever
+    # the counts do.
+    flat = torch.cumsum(hist.view(-1), 0, dtype=torch.int32)
+    ends = flat[nb - 1::nb]
+    starts = torch.cat([ends.new_zeros((1,)), ends[:-1]])
+    counts = flat.view(sigma, nb) - starts[:, None]
+    return torch.cat([counts.new_zeros((1, sigma)), counts.T])

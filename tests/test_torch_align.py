@@ -110,6 +110,104 @@ def test_dp_open_below_ext():
         got, np.asarray(jbe._full_dp_ends(*J, **kw)))
 
 
+def wavefront_ends(q, r, qlen, rlen, table, open_p, ext_p):
+    """One pair by the schedule of the lane wavefront in csrc/align_dp.cu,
+    in numpy: element i of each (32,) array is lane i of the warp.
+
+    Lane i owns rows [i*P, (i+1)*P) of the column, P the smallest of 1, 2,
+    4, 8 with 32*P >= qlen + 1, and computes column t = s - i at step s.
+    What a lane takes from lane i - 1 (the shuffles) is what that lane
+    held after step s - 1: its ref char, the bottom row's final H (the
+    diagonal of the next column) and the insertion carry. Insertions run
+    sequentially over Hn, before insertions: I[j] = max(Hn[j-1] - open,
+    I[j-1] - ext). Each lane keeps the first strictly greater H of its
+    own valid cells in (t, j) order; one reduce by (value desc, t asc,
+    j asc) ends it. Returns [best, bt, bj]."""
+    NEG, lanes = tdp.NEG, np.arange(32)
+    sigma = table.shape[0]
+    P = next(p for p in (1, 2, 4, 8) if 32 * p >= qlen + 1)
+    j = lanes[:, None] * P + np.arange(P)[None, :]           # (32, P)
+    valid = j <= qlen
+    qc = np.where((j >= 1) & valid, q[np.clip(j - 1, 0, max(len(q) - 1, 0))]
+                  if len(q) else 0, 0)
+
+    def h0(jj):
+        return np.where(jj == 0, 0, -open_p - (jj - 1) * ext_p)
+
+    H = h0(j).astype(np.int64)
+    D = np.full((32, P), NEG, np.int64)
+    bv = np.full(32, np.iinfo(np.int32).min, np.int64)
+    bt = np.zeros(32, np.int64)
+    bj = np.zeros(32, np.int64)
+    for p in range(P):                                       # column 0
+        upd = valid[:, p] & (H[:, p] > bv)
+        bv, bj = np.where(upd, H[:, p], bv), np.where(upd, j[:, p], bj)
+    up = h0(lanes * P - 1)                     # H0 of the row above lane i
+    nl = -(-(qlen + 1) // P)                   # lanes holding a valid row
+    c_reg = np.zeros(32, np.int64)
+    h_out = np.zeros(32, np.int64)
+    i_out = np.zeros(32, np.int64)
+    for s in range(rlen + nl - 1 if rlen else 0):
+        c_in, h_in, i_in = (np.roll(x, 1) for x in (c_reg, h_out, i_out))
+        c_in[0] = r[s] if s < rlen else 0
+        i_in[0] = NEG - (open_p - ext_p)      # I at row 0, as in the plain
+        c_reg = c_in
+        t = s - lanes
+        act = (t >= 0) & (t < rlen) & (lanes < nl)
+        diag, I, hn_prev = up, i_in, None
+        newH, newD = H.copy(), D.copy()
+        for p in range(P):
+            dn = np.maximum(H[:, p] - open_p, D[:, p] - ext_p)
+            hn = np.maximum(diag + table[qc[:, p], c_in], dn)
+            if p == 0:
+                hn = np.where(lanes == 0, dn, hn)  # row 0: no diagonal
+            else:
+                I = np.maximum(hn_prev - open_p, I - ext_p)
+            h = np.maximum(hn, I)
+            diag, hn_prev = H[:, p], hn
+            newH[:, p], newD[:, p] = h, dn
+            upd = act & valid[:, p] & (h > bv)
+            bv = np.where(upd, h, bv)
+            bt = np.where(upd, t + 1, bt)
+            bj = np.where(upd, j[:, p], bj)
+        H = np.where(act[:, None], newH, H)
+        D = np.where(act[:, None], newD, D)
+        h_out = np.where(act, H[:, P - 1], h_out)
+        i_out = np.where(act, np.maximum(hn_prev - open_p, I - ext_p), i_out)
+        up = np.where(act, h_in, up)
+    win = min(lanes, key=lambda i: (-bv[i], bt[i], bj[i]))
+    return [int(bv[win]), int(bt[win]), int(bj[win])], P
+
+
+@pytest.mark.parametrize("pen", [(2, 3, 3, 5, 2), (2, 1, 2, 1, 4)])
+@pytest.mark.parametrize("band", [1, 2, 4, 8])
+def test_wavefront_schedule(band, pen):
+    """The lane wavefront's recurrence and tie rule, emulated step by step,
+    equal the JAX kernel (interpret mode) and the port's plain version:
+    rows of ``band`` per lane, open < ext, qlen 0, rlen 0, identical pairs
+    (ties) and all-0 codes."""
+    match, tpen, tvpen, open_p, ext_p = pen
+    LQ, LR = 32 * band - 1, 37
+    rng = np.random.default_rng(band * 10 + open_p)
+    q, r, ql, rl = make_pairs(rng, 9, LQ, LR)
+    ql[5:] = rng.integers(16 * band if band > 1 else 0, LQ + 1, 4)
+    rl[5:7] = LR                               # full columns
+    kw = dict(match=match, tpen=tpen, tvpen=tvpen, open_p=open_p,
+              ext_p=ext_p)
+    table = tdp.dna_table(match, tpen, tvpen).astype(np.int64)
+    got, bands = zip(*(wavefront_ends(q[i], r[i], int(ql[i]), int(rl[i]),
+                                      table, open_p, ext_p)
+                       for i in range(len(q))))
+    assert band in bands
+    J = [jnp.asarray(x) for x in (q, r, ql, rl)]
+    np.testing.assert_array_equal(
+        np.array(got), np.asarray(jdp.batch_align_ends(*J, interpret=True,
+                                                       **kw)))
+    np.testing.assert_array_equal(
+        np.array(got), tdp.batch_align_ends(T(q), T(r), T(ql), T(rl),
+                                            **kw).numpy())
+
+
 def test_dp_table_scoring():
     """The unit table runs on the same plain version / kernel as the DNA
     table; the DNA table equals the arithmetic substitution."""

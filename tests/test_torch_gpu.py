@@ -271,6 +271,16 @@ DP_CASES = [
     (1000, 100, 120, (2, 3, 3, 5, 2)),
     (64, 3000, 3000, (2, 3, 3, 5, 2)),      # columns in the scratch buffer
     (9, 20, 23, (2, 1, 2, 1, 4)),           # open < ext
+    # every band of the wave route (qlen + 1 = LQ + 1 on every other pair)
+    # and the first query width of the long route, 257 rows
+    (40, 31, 50, (2, 3, 3, 5, 2)),
+    (40, 32, 50, (2, 3, 3, 5, 2)),
+    (40, 63, 70, (2, 3, 3, 5, 2)),
+    (40, 64, 70, (2, 1, 2, 1, 4)),
+    (40, 127, 140, (2, 3, 3, 5, 2)),
+    (40, 128, 140, (2, 3, 3, 5, 2)),
+    (40, 255, 260, (2, 1, 2, 1, 4)),
+    (40, 256, 260, (2, 3, 3, 5, 2)),
 ]
 
 
@@ -278,16 +288,46 @@ DP_CASES = [
 def test_align_dp_kernel_matches_plain(dev, R, LQ, LR, pen):
     match, tpen, tvpen, open_p, ext_p = pen
     args = _pairs(np.random.default_rng(R + LQ), R, LQ, LR, dev)
+    args[2][5::2] = LQ
     kw = dict(match=match, tpen=tpen, tvpen=tvpen, open_p=open_p,
               ext_p=ext_p)
-    n0 = pallas_dp.dp_launches
+    n0, long0 = pallas_dp.dp_launches, pallas_dp.dp_long_launches
     got = pallas_dp.batch_align_ends(*args, **kw)
     scores = pallas_dp.batch_align_scores(*args, **kw)
     torch.cuda.synchronize()
     assert pallas_dp.dp_launches == n0 + 2
+    long_route = LQ + 1 > pallas_dp.WAVE_MAX_ROWS
+    assert pallas_dp.dp_long_launches == long0 + 2 * long_route
     table = pallas_dp.score_table(match, tpen, tvpen, None, dev)
     want = pallas_dp.align_plain(*args, table, open_p, ext_p, True)
     _same([got, scores], [want, want[:, 0]])
+
+
+def test_align_dp_routes_agree(dev):
+    """The long route forced on pairs the wave route takes: both equal."""
+    args = _pairs(np.random.default_rng(4), 300, 112, 128, dev)
+    table = pallas_dp.score_table(2, 3, 3, None, dev)
+    wave, long_ = (pallas_dp._align_cuda(*args, table, 5, 2, True, w)
+                   for w in (True, False))
+    _same([wave], [long_])
+
+
+def test_scans_cuda_equal_cpu(dev):
+    """The two-level running maximum, the cumsum and the block counts on
+    the card equal their CPU results at 2^25 entries."""
+    from metagraph_tpu_torch.common import ranksel
+    gen = torch.Generator().manual_seed(0)
+    for n in (1 << 25, (1 << 25) + 13):
+        x = torch.randint(-(1 << 20), 1 << 20, (n,), dtype=torch.int32,
+                          generator=gen)
+        x[::1000] = torch.iinfo(torch.int32).min
+        for fn in (packed.blocked_cummax, packed.blocked_cumsum):
+            assert torch.equal(fn(x.to(dev)).cpu(), fn(x))
+    nb = (1 << 25) // ranksel._BS
+    seq = torch.randint(0, 11, (nb * ranksel._BS,), dtype=torch.int8,
+                        generator=gen)
+    assert torch.equal(ranksel.block_counts(seq.to(dev), 10, nb).cpu(),
+                       ranksel.block_counts(seq, 10, nb))
 
 
 def test_align_dp_kernel_unit_table(dev):

@@ -15,10 +15,12 @@ import pytest
 import torch
 
 from metagraph_tpu.common import packed as jpk
+from metagraph_tpu.common import ranksel as jranksel
 from metagraph_tpu.kmer import extractor as jext
 from metagraph_tpu.kmer import packing as jpack
 from metagraph_tpu.kmer.alphabets import DNA
 from metagraph_tpu_torch.common import packed as tpk
+from metagraph_tpu_torch.common import ranksel as tranksel
 from metagraph_tpu_torch.kmer import extractor as text
 from metagraph_tpu_torch.kmer import packing as tpack
 
@@ -189,6 +191,56 @@ def test_pad_mask_scans():
          tpk.blocked_cumsum(torch.from_numpy(v)))
     same(jpk.blocked_cummax(jnp.asarray(v), block=1024),
          tpk.blocked_cummax(torch.from_numpy(v)))
+
+
+SCAN_SIZES = [0, 1, 8191, 8192, 8193, 3 * 8192 + 5, (1 << 20) + 13]
+
+
+def _scan_input(rng, n, kind):
+    if kind == "equal":
+        return np.full(n, 7, np.int32)
+    if kind == "negative":            # shows a pad or seed other than min
+        v = rng.integers(-(1 << 31), 0, n).astype(np.int32)
+        v[:1] = -(1 << 31)
+        return v
+    return rng.integers(-50, 50, n).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["random", "equal", "negative"])
+@pytest.mark.parametrize("n", SCAN_SIZES)
+def test_blocked_scans(n, kind):
+    """The two-level running maximum and the cumsum against the JAX
+    package's blocked scans and numpy, across the 8192-entry rows."""
+    v = _scan_input(np.random.default_rng(n + len(kind)), n, kind)
+    got_sum = tpk.blocked_cumsum(torch.from_numpy(v))
+    got_max = tpk.blocked_cummax(torch.from_numpy(v))
+    assert got_sum.dtype == got_max.dtype == torch.int32
+    np.testing.assert_array_equal(got_sum.numpy(),
+                                  np.cumsum(v, dtype=np.int32))
+    np.testing.assert_array_equal(got_max.numpy(), np.maximum.accumulate(v))
+    if n:
+        same(jpk.blocked_cumsum(jnp.asarray(v)), got_sum)
+        same(jpk.blocked_cummax(jnp.asarray(v)), got_max)
+
+
+@pytest.mark.parametrize("nb", [1, 7, (1 << 12) + 1])
+def test_block_counts(nb):
+    """Exclusive per-block symbol counts (the pad symbol not counted)
+    against a numpy cumsum and the JAX SymbolRank's blocks."""
+    sigma, bs = 10, tranksel._BS
+    rng = np.random.default_rng(nb)
+    seq = rng.integers(0, sigma + 1, nb * bs).astype(np.int8)
+    seq[-5:] = sigma
+    got = tranksel.block_counts(torch.from_numpy(seq), sigma, nb)
+    hist = np.stack([(seq.reshape(nb, bs) == c).sum(1) for c in
+                     range(sigma)], axis=1)
+    want = np.concatenate([np.zeros((1, sigma), np.int64),
+                           np.cumsum(hist, axis=0)])
+    assert got.dtype == torch.int32 and got.shape == (nb + 1, sigma)
+    np.testing.assert_array_equal(got.numpy(), want)
+    n = nb * bs - 5
+    jblocks = jranksel.SymbolRank.build(jnp.asarray(seq[:n]), sigma).blocks
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jblocks))
 
 
 # ---------------------------------------------------------------------------
