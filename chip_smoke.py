@@ -43,14 +43,33 @@ Phases (each raises on failure; the process exits non-zero):
         with their counts, read by seqio/kmc.py and built by
         collect_counted_kmers + build_boss_from_kmers; the graph must equal
         build_boss_from_codes on those codes, the build kernels launched.
+     e. the rest of the surface. In 3a: a count annotation of its 1000
+        records and its 2^15 reads through --query-counts,
+        --count-quantiles "0 0.5 1" and --print-signature (every sampled
+        read reports its label; CUDA equals CPU on 512 reads), and
+        stats --validate --count-dummy on its k = 20 graph (OK; dummy
+        counts equal numpy's). In 3c: 2^13 reads of its records and
+        reverse complements, one transversion each, aligned on the
+        primary graph with CIGARs and score-only (>= 99 % score 195 and
+        spell the unmutated read; pallas_dp launched; CUDA equals CPU on
+        512 reads of a 2^18-code primary graph). On its own: a
+        count-sidecar build at k = 31 canonical of 256 contigs of the
+        first 2^22 codes with counts 1-300 (weights equal a numpy gold
+        that sums and saturates; the three build kernels launched).
   4. the CLI: build, annotate, query, query --align, align (TSV and
      --json) and stats with --device cuda; build --mode primary, stats,
      annotate and query (records and reverse complements) on it; build
-     from a KMC database with --min-count 2.
+     from a KMC database with --min-count 2; then, in this process, each
+     flag of 3e: builds of two files, of a stdin list, with
+     --fwd-and-reverse and from count sidecars, the stats flags, the
+     annotate header flags, the three query modes and align / query
+     --align on the primary graph.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -480,28 +499,37 @@ def fwd_kmer_ints(codes, K):
     return fwd
 
 
-def gold_real_edges(codes, K, mode):
-    """numpy count of the distinct k-mers: basic all, primary the
-    canonical forms, canonical the closure (both orientations,
-    palindromes once)."""
+def rc_kmer_ints(codes, K):
+    """2-bit integers of the reverse complements of every window."""
     c = codes.astype(np.uint64) - np.uint64(1)
-    fwd = fwd_kmer_ints(codes, K)
-    if mode == "basic":
-        return len(np.unique(fwd))
     nw = len(c) - K + 1
     rc = np.zeros(nw, np.uint64)
     for j in range(K - 1, -1, -1):
         rc = (rc << np.uint64(2)) | (np.uint64(3) - c[j:j + nw])
-    canon = np.unique(np.minimum(fwd, rc))
+    return rc
+
+
+def revcomp_ints(x, K):
+    """Reverse complements of 2-bit k-mer integers."""
+    out = np.zeros_like(x)
+    x = x.copy()
+    for _ in range(K):
+        out = (out << np.uint64(2)) | (np.uint64(3) - (x & np.uint64(3)))
+        x >>= np.uint64(2)
+    return out
+
+
+def gold_real_edges(codes, K, mode):
+    """numpy count of the distinct k-mers: basic all, primary the
+    canonical forms, canonical the closure (both orientations,
+    palindromes once)."""
+    fwd = fwd_kmer_ints(codes, K)
+    if mode == "basic":
+        return len(np.unique(fwd))
+    canon = np.unique(np.minimum(fwd, rc_kmer_ints(codes, K)))
     if mode == "primary":
         return len(canon)
-    rc_canon = np.zeros_like(canon)
-    x = canon.copy()
-    for _ in range(K):
-        rc_canon = (rc_canon << np.uint64(2)) | (np.uint64(3)
-                                                 - (x & np.uint64(3)))
-        x >>= np.uint64(2)
-    pal = int(np.count_nonzero(rc_canon == canon))
+    pal = int(np.count_nonzero(revcomp_ints(canon, K) == canon))
     return 2 * len(canon) - pal
 
 
@@ -650,8 +678,11 @@ def phase_main_path(dev):
             and np.array_equal(cp, hp)):
         raise AssertionError("CUDA label counts differ from CPU counts")
     log("query: CUDA label counts equal CPU counts on 512 reads")
+    surface = surface_query_modes(graph, records, labels, reads, which,
+                                  cpu.graph)
     del cpu
     torch.cuda.empty_cache()
+    surface["validate"] = surface_validate(graph, real)
     align_launches = phase_align(graph, bq, codes, rng)
     del graph, boss, ann, bq
     torch.cuda.empty_cache()
@@ -675,7 +706,7 @@ def phase_main_path(dev):
     log("build at 2^16 codes: CUDA W, last, F, NF, weights, edge_lanes "
         "equal the CPU build (k=20 basic, k=31 canonical)")
     check_align_cuda_cpu(dev)
-    return launches, align_launches, results
+    return launches, align_launches, results, surface
 
 
 # ---------------------------------------------------------------------------
@@ -909,7 +940,10 @@ def phase_primary(dev):
     log(f"query through CanonicalDbg: {n_reads} reads of {rl} bp and their "
         f"reverse complements in {dt:.3f} s = {len(reads) / dt:.0f} reads/s;"
         f" every read and reverse complement carries its record's label")
-    del graph, boss, ann, bq
+    del bq, ann
+    surface_primary_align(graph, records, np.random.default_rng(SEED + 9),
+                          dev)
+    del graph, boss
     torch.cuda.empty_cache()
 
     small = np.random.default_rng(SEED + 1).integers(
@@ -1001,8 +1035,444 @@ def phase_kmc(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: the rest of the ported commands' surface
+# ---------------------------------------------------------------------------
+
+def weighted_gold(contigs, counts, K, max_count=255):
+    """numpy gold of a canonical build from contigs with per-k-mer
+    counts: each canonical k-mer's counts summed, both orientations
+    carrying the sum saturated at ``max_count`` (K odd: no palindromes).
+    Returns (2-bit keys, weights), sorted by key."""
+    fwd = np.concatenate([fwd_kmer_ints(c, K) for c in contigs])
+    rc = np.concatenate([rc_kmer_ints(c, K) for c in contigs])
+    keys, inv = np.unique(np.minimum(fwd, rc), return_inverse=True)
+    sums = np.zeros(len(keys), np.int64)
+    np.add.at(sums, inv, np.concatenate(counts).astype(np.int64))
+    all_keys = np.concatenate([keys, revcomp_ints(keys, K)])
+    all_w = np.minimum(np.concatenate([sums, sums]), max_count)
+    order = np.argsort(all_keys, kind="stable")
+    return all_keys[order], all_w[order]
+
+
+def graph_keys_weights(boss, K):
+    """The real edges of a graph as 2-bit k-mer keys (computed on the
+    card from the edge k-mers) with their weights, sorted by key."""
+    import torch
+    from metagraph_tpu_torch.kmer.packing import unpack_to_chars
+    chars = unpack_to_chars(boss.edge_lanes, K, boss.bits_per_char)
+    real = (chars != 0).all(dim=1)
+    chars = chars[real]
+    key = torch.zeros(chars.shape[0], dtype=torch.int64, device=chars.device)
+    for j in range(K):
+        key = (key << 2) | (chars[:, j].to(torch.int64) - 1)
+    key = key.cpu().numpy().astype(np.uint64)
+    w = boss.weights[1:][real].cpu().numpy().astype(np.int64)
+    order = np.argsort(key, kind="stable")
+    return key[order], w[order]
+
+
+def phase_sidecar(dev):
+    """3e. A count-sidecar build, what build --count-kmers runs over
+    contigs with .kmer_counts.gz sidecars: the first 2^22 of the 2^25
+    codes cut into 256 contigs with random per-k-mer counts 1-300, k = 31
+    canonical, 8-bit weights (cut from 2^25: the text sidecars are
+    written and parsed on the host). Checks: the weights equal a numpy
+    gold that sums and saturates; the three build kernels launched."""
+    import torch
+    from metagraph_tpu_torch.cli.main import sidecar_kmers
+    from metagraph_tpu_torch.graph.boss_construct import (
+        build_boss_from_kmers, collect_counted_kmers)
+    from metagraph_tpu_torch.kmer.alphabets import DNA
+    from metagraph_tpu_torch.seqio.fasta import ExtendedFastaWriter
+    K, n_ctg = 31, 256
+    codes = np.random.default_rng(SEED).integers(
+        1, 5, N_CODES).astype(np.uint8)[:1 << 22]
+    contigs = np.split(codes, n_ctg)
+    rng = np.random.default_rng(SEED + 5)
+    counts = [rng.integers(1, 301, len(c) - K + 1) for c in contigs]
+    letters = np.frombuffer(b"$ACGT", np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "contigs")
+        t0 = time.time()
+        with ExtendedFastaWriter(base, K) as w:
+            for c, n in zip(contigs, counts):
+                w.write(letters[c].tobytes(), n)
+        t_write = time.time() - t0
+        t0 = time.time()
+        chars, kcounts = sidecar_kmers([base + ".fasta.gz"], K, DNA)
+        t_read = time.time() - t0
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lanes, cnts, n = collect_counted_kmers(chars, kcounts, K, DNA,
+                                           canonical=True, device=dev)
+    boss = build_boss_from_kmers(lanes, cnts, n, K, DNA, mode="canonical",
+                                 bits_per_count=8)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = read_launches()
+    check_launched(launches, BUILD_KERNELS, "the sidecar build")
+    gk, gw = weighted_gold(contigs, counts, K)
+    key, w = graph_keys_weights(boss, K)
+    if not (np.array_equal(key, gk) and np.array_equal(w, gw)):
+        raise AssertionError("sidecar build: real edges or weights differ "
+                             "from the numpy gold")
+    rate = len(chars) / dt
+    log(f"3e sidecar build, k=31 canonical, 256 contigs of the first 2^22 "
+        f"codes, counts 1-300: {len(chars)} k-mers; sidecars written in "
+        f"{t_write:.2f} s, read in {t_read:.2f} s (host); "
+        f"collect_counted_kmers + build_boss_from_kmers {dt:.3f} s = "
+        f"{rate / 1e6:.2f} M k-mers/s; {len(key)} real edges and their "
+        f"weights (sums saturated at 255: {int((gw == 255).sum())}) equal "
+        f"the numpy gold; launches {launches}")
+    return launches, rate
+
+
+def surface_query_modes(graph, records, labels, reads, which, cpu_graph):
+    """3e. A count annotation (annotate --count-kmers) of phase 3a's 1000
+    records, then its reads through the --query-counts,
+    --count-quantiles "0 0.5 1" and --print-signature executors. Checks:
+    every sampled read reports its record's label (with at least
+    min_count k-mers), and CUDA equals the CPU on 512 reads."""
+    import torch
+    from metagraph_tpu_torch.anno.annotator import annotation_from_numpy
+    from metagraph_tpu_torch.engine.annotated_dbg import (
+        AnnotatedDbg, BatchQuery, annotate_sequences)
+    t0 = time.time()
+    ann = annotate_sequences(graph, [(s, [lab]) for s, lab in
+                                     zip(records, labels)],
+                             with_counts=True).finalize()
+    torch.cuda.synchronize()
+    log(f"3e annotate --count-kmers: {len(records)} records, {ann.matrix.nnz} "
+        f"relations with values in {time.time() - t0:.2f} s")
+    bq = BatchQuery(AnnotatedDbg(graph=graph, annotation=ann))
+    anno_np = dict(ann.matrix.to_npz_dict(),
+                   labels=np.array(ann.encoder.labels))
+    cpu_bq = BatchQuery(AnnotatedDbg(
+        graph=cpu_graph, annotation=annotation_from_numpy(anno_np, "cpu")))
+    top, ratio = 2 ** 62, 0.7
+    modes = {
+        "--query-counts": lambda b, rs: b.get_top_labels_batch(
+            rs, top, ratio, with_kmer_counts=True),
+        "--count-quantiles": lambda b, rs: b.get_label_count_quantiles_batch(
+            rs, top, ratio, (0.0, 0.5, 1.0)),
+        "--print-signature": lambda b, rs: b.get_top_label_signatures_batch(
+            rs, top, ratio),
+    }
+    min_count = int(np.ceil(ratio * (len(reads[0]) - graph.k + 1)))
+    sub = reads[:256] + reads[-256:]
+    rates = {}
+    for name, fn in modes.items():
+        fn(bq, reads[:256])                                     # warm
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = fn(bq, reads)
+        dt = time.time() - t0
+        rates[name] = len(reads) / dt
+        for i, r in enumerate(which):
+            res = dict(got[i])
+            if labels[r] not in res:
+                raise AssertionError(f"{name}: read {i} misses its label: "
+                                     f"{got[i]}")
+            v = res[labels[r]]
+            if name == "--query-counts":
+                ok = v >= min_count
+            elif name == "--count-quantiles":
+                ok = len(v) == 3 and v[2] >= 1
+            else:
+                ok = int(v.sum()) >= min_count
+            if not ok:
+                raise AssertionError(f"{name}: read {i}: {labels[r]} -> {v}")
+        a, b = fn(bq, sub), fn(cpu_bq, sub)
+        if name == "--print-signature":
+            same = all([x[0] for x in p] == [x[0] for x in q] and all(
+                np.array_equal(x[1], y[1]) for x, y in zip(p, q))
+                for p, q in zip(a, b))
+        else:
+            same = a == b
+        if not same:
+            raise AssertionError(f"{name}: CUDA results differ from CPU")
+        log(f"3e query {name}: {len(reads)} reads of 100 bp in {dt:.3f} s = "
+            f"{len(reads) / dt:.0f} reads/s; all {len(which)} sampled reads "
+            f"report their record's label; CUDA equals CPU on 512 reads")
+    return rates
+
+
+def surface_validate(graph, gold_real):
+    """3e. stats --validate --count-dummy on the k = 20 basic graph of
+    2^25 codes: validation OK; the dummy counts equal numpy's reading of
+    the edge k-mers; real edges equal the numpy gold."""
+    import torch
+    from metagraph_tpu_torch.cli.main import validate_graph
+    from metagraph_tpu_torch.common import packed
+    boss = graph.boss
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    errs = validate_graph(graph)
+    nsrc, nsink = (int(x) for x in boss.num_dummy_edges())
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if errs:
+        raise AssertionError(f"stats --validate: {errs}")
+    low = packed.lanes_to_numpy(boss.edge_lanes[-1])        # fields 0, 1
+    src = ((low >> 4) & 15) == 0
+    sink = ((low & 15) == 0) & ~src
+    if (nsrc, nsink) != (int(src.sum()), int(sink.sum())):
+        raise AssertionError(f"--count-dummy: ({nsrc}, {nsink}) != numpy "
+                             f"({int(src.sum())}, {int(sink.sum())})")
+    if boss.num_edges - nsrc - nsink != gold_real:
+        raise AssertionError("--count-dummy: real edges differ from numpy")
+    log(f"3e stats --validate --count-dummy, k=20 basic graph of 2^25 "
+        f"codes ({boss.num_edges} edges): OK in {dt:.3f} s, peak device "
+        f"memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB "
+        f"above the graph); {nsrc} dummy source and {nsink} dummy sink "
+        f"edges = numpy, {gold_real} real = numpy gold")
+    return dt, peak
+
+
+def primary_reads(records, n, rng, rl=100):
+    """``n`` reads of ``rl`` bp cut from ``records``, every other one
+    reverse-complemented, each with one transversion at a position in
+    [10, 90); returns (reads, the unmutated reads)."""
+    reads, wants = [], []
+    for i in range(n):
+        rec = records[int(rng.integers(0, len(records)))]
+        off = int(rng.integers(0, len(rec) - rl + 1))
+        win = rec[off:off + rl]
+        if i % 2:
+            win = revcomp(win)
+        r = bytearray(win)
+        q = int(rng.integers(10, 90))
+        r[q] = SUBS[r[q]]
+        reads.append(bytes(r))
+        wants.append(win)
+    return reads, wants
+
+
+def surface_primary_align(graph, records, rng, dev):
+    """3e. align / query --align on phase 3c's primary graph (through
+    CanonicalDbg): 2^13 reads of its records and reverse complements with
+    one transversion each, with CIGARs and score-only. Checks: >= 99 %
+    score 195 with one X and spell the unmutated read, score-only agrees,
+    pallas_dp launched; on a 2^18-code primary graph built on each
+    device, 512 such reads align identically on CUDA and on the CPU."""
+    import torch
+    from metagraph_tpu_torch.align.aligner import Aligner
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.canonical import CanonicalDbg
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    n = 1 << 13
+    reads, wants = primary_reads(records, n, rng)
+    al = Aligner(graph)
+    t0 = time.time()
+    al.align_batch(reads[:512])                    # warm: adjacency tables
+    al.align_batch(reads[:512], with_cigar=False)
+    torch.cuda.synchronize()
+    log(f"3e primary align warm-up (adjacency tables of "
+        f"{graph.num_nodes()} virtual nodes, 512 reads twice): "
+        f"{time.time() - t0:.2f} s")
+    out = {}
+    for with_cigar in (True, False):
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out[with_cigar] = al.align_batch(reads, with_cigar=with_cigar)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        launches = read_launches()
+        what = "with CIGARs" if with_cigar else "score-only"
+        log(f"3e primary align_batch {what}: {n} reads in {dt:.3f} s = "
+            f"{n / dt:.1f} reads/s; launches {launches}")
+    check_launched(launches, ("pallas_dp",), "the primary score-only "
+                   "alignment")
+    ok = sum(1 for res, w in zip(out[True], wants) if res
+             and res[0].score == 195 and res[0].cigar.count("X") == 1
+             and res[0].sequence == w)
+    fast_ok = sum(1 for res, w in zip(out[False], wants) if res
+                  and res[0].score == 195 and res[0].sequence == w)
+    if ok < 0.99 * n or fast_ok < 0.99 * n:
+        raise AssertionError(f"primary align: {ok} / {fast_ok} of {n} reads "
+                             f"as expected")
+    for i, (a, b) in enumerate(zip(out[True], out[False])):
+        if a and b and (a[0].score, a[0].sequence, a[0].query_begin,
+                        a[0].query_end) != (b[0].score, b[0].sequence,
+                                            b[0].query_begin, b[0].query_end):
+            raise AssertionError(f"primary align read {i}: score-only "
+                                 f"differs from the CIGAR run")
+    log(f"3e primary align: {ok} (CIGARs) and {fast_ok} (score-only) of {n} "
+        f"reads score 195 with one X and spell their unmutated read; "
+        f"score-only equals the CIGAR run")
+    small = np.random.default_rng(SEED + 6).integers(
+        1, 5, 1 << 18).astype(np.uint8)
+    s_reads, _ = primary_reads(split_records(small, 16), 512,
+                               np.random.default_rng(SEED + 7))
+    als = {d: Aligner(CanonicalDbg(base=DbgSuccinct.from_boss(
+        build_boss_from_codes(small, 31, mode="primary", device=d),
+        mode="primary"))) for d in (dev, "cpu")}
+    for with_cigar in (True, False):
+        got, want = (als[d].align_batch(s_reads, with_cigar=with_cigar)
+                     for d in (dev, "cpu"))
+        _same_alignments(got, want, f"primary align CUDA vs CPU "
+                                    f"(with_cigar={with_cigar})")
+    log("3e primary align at 2^18 codes: CUDA results equal the CPU results "
+        "in every field on 512 reads, with CIGARs and score-only")
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the CLI
 # ---------------------------------------------------------------------------
+
+class _StdinList(io.StringIO):
+    """A file list piped to stdin (not a terminal)."""
+
+    def isatty(self):
+        return False
+
+
+def cli_surface(tmp, names, seqs, gp, both_fa, device):
+    """Phase 4, the flags of the rest of the surface, through the CLI's
+    ``main`` in this process: builds from two files (with the global and
+    parity flags), from a stdin list, with --fwd-and-reverse and from
+    count sidecars; stats --validate --count-dummy --print
+    --print-internal and --print-col-names; annotate's header flags;
+    query --query-counts, --count-quantiles, --print-signature
+    --fwd-and-reverse; align and query --align on the primary graph."""
+    import torch
+    from metagraph_tpu_torch.cli.main import main as cli
+    from metagraph_tpu_torch.graph.io import load_graph
+    from metagraph_tpu_torch.seqio.fasta import ExtendedFastaWriter
+
+    def run(*argv, stdin=None):
+        buf, old = io.StringIO(), sys.stdin
+        try:
+            if stdin is not None:
+                sys.stdin = _StdinList(stdin)
+            with contextlib.redirect_stdout(buf):
+                cli([*argv, "--device", device])
+        except SystemExit as e:
+            if e.code not in (0, None):
+                raise AssertionError(f"CLI {' '.join(argv)} exited {e.code}")
+        finally:
+            sys.stdin = old
+        return buf.getvalue()
+
+    def path(name):
+        return os.path.join(tmp, name)
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    codes = [np.searchsorted(acgt, np.frombuffer(s.encode(), np.uint8)) + 1
+             for s in seqs]
+    half = len(names) // 2
+    for fname, lo, hi in (("a.fa", 0, half), ("b.fa", half, len(names))):
+        with open(path(fname), "w") as f:
+            for name, seq in zip(names[lo:hi], seqs[lo:hi]):
+                f.write(f">{name}|grp{int(name[3:]) % 3} cmt\n{seq}\n")
+    t0 = time.time()
+    run("build", "-k", "31", "-o", path("g2"), path("a.fa"), path("b.fa"),
+        "-v", "-p", "4", "--mask-dummy", "--clear-dummy", "--threads", "2")
+    gold = len(np.unique(np.concatenate([fwd_kmer_ints(c, 31)
+                                         for c in codes])))
+    g2 = load_graph(path("g2"), device=device)
+    if g2.num_nodes() != gold:
+        raise AssertionError(f"CLI build of two files: not {gold} nodes")
+    run("build", "-k", "31", "-o", path("gstdin"),
+        stdin=f"{path('a.fa')}\n\n{path('b.fa')}\n")
+    g_in = load_graph(path("gstdin"), device=device)
+    if not (torch.equal(g_in.boss.edge_lanes, g2.boss.edge_lanes)
+            and torch.equal(g_in.boss.W, g2.boss.W)):
+        raise AssertionError("CLI build from a stdin list differs from the "
+                             "build of the named files")
+    run("build", "-k", "31", "--fwd-and-reverse", "-o", path("gfr"),
+        path("a.fa"), path("b.fa"))
+    fwd = np.concatenate([fwd_kmer_ints(c, 31) for c in codes])
+    rc = np.concatenate([rc_kmer_ints(c, 31) for c in codes])
+    closure = len(np.unique(np.concatenate([fwd, rc])))
+    if load_graph(path("gfr"), device=device).num_nodes() != closure:
+        raise AssertionError(f"CLI build --fwd-and-reverse: not {closure} "
+                             f"nodes")
+    rng = np.random.default_rng(SEED + 8)
+    counts = [rng.integers(1, 301, len(c) - 30) for c in codes]
+    with ExtendedFastaWriter(path("ctg"), 31) as w:
+        for name, seq, n in zip(names, seqs, counts):
+            w.write(seq, n, name=name)
+    run("build", "-k", "31", "--mode", "canonical", "--count-kmers", "-o",
+        path("gsc"), path("ctg.fasta.gz"))
+    gk, gw = weighted_gold(codes, counts, 31)
+    key, wt = graph_keys_weights(load_graph(path("gsc"), device=device).boss,
+                                 31)
+    if not (np.array_equal(key, gk) and np.array_equal(wt, gw)):
+        raise AssertionError("CLI build from count sidecars: weights differ "
+                             "from the numpy gold")
+    out = run("stats", "--validate", "--count-dummy", "--print",
+              "--print-internal", path("gfr"))
+    m = load_graph(path("gfr"), device=device).boss.num_edges
+    if "validation: OK" not in out or "dummy sink edges" not in out or \
+            out.count("\n") < 2 * m:
+        raise AssertionError(f"CLI stats flags output wrong:\n{out[:300]}")
+    # labels per record: its name, its group and the header's comment
+    run("build", "-k", "31", "--mode", "canonical", "-o", path("gc"),
+        path("a.fa"), path("b.fa"))
+    run("annotate", "-i", path("gc"), "--anno-header", "--header-delimiter",
+        "|", "--header-comment-delim", "|", "--count-kmers", "--separately",
+        "-o", path("anno"), path("a.fa"), path("b.fa"))
+    anno = path("anno.column.annodbg.npz")
+    cols = run("stats", "--print-col-names", anno)
+    if not all(f"<{x}>" in cols for x in ("rec0", "grp2", "cmt")):
+        raise AssertionError(f"CLI annotate header flags: labels {cols}")
+    fa = path("in.fa")
+    lines = run("query", "--query-counts", "-i", path("gc"), "-a", anno,
+                fa).splitlines()
+    for line, name, seq in zip(lines, names, seqs):
+        want = f"<{name}>:{len(seq) - 30}"
+        if want not in line.split("\t"):
+            raise AssertionError(f"CLI query --query-counts: {line[:200]}")
+    lines = run("query", "--count-quantiles", "0 0.5 1", "-i", path("gc"),
+                "-a", anno, fa).splitlines()
+    if len(lines) != len(names) or any(
+            f"<{name}>:1:1:1" not in line.split("\t")
+            for line, name in zip(lines, names)):
+        raise AssertionError(f"CLI query --count-quantiles: {lines[:2]}")
+    lines = run("query", "--print-signature", "--fwd-and-reverse", "-i",
+                path("gc"), "-a", anno, fa).splitlines()
+    for i, line in enumerate(lines):
+        n = len(seqs[i // 2]) - 30
+        want = f"<{names[i // 2]}>:{n}:{'1' * n}:"
+        if not any(x.startswith(want) for x in line.split("\t")[2:]):
+            raise AssertionError(f"CLI query --print-signature "
+                                 f"--fwd-and-reverse: {line[:200]}")
+    if len(lines) != 2 * len(names):
+        raise AssertionError("CLI query --fwd-and-reverse: line count")
+    both = [(n, s) for n in names for s in (seqs[names.index(n)],
+                                            revcomp(seqs[names.index(n)]
+                                                    .encode()).decode())]
+    rows = [line.split("\t") for line in
+            run("align", "-i", gp, both_fa).splitlines()]
+    if [r[0] for r in rows] != [n for n, _ in both] or any(
+            r[1:] != [s, "+", s, str(2 * len(s)), str(len(s)), f"{len(s)}=",
+                      "0"] for r, (_, s) in zip(rows, both)):
+        raise AssertionError(f"CLI align on the primary graph: {rows[:2]}")
+    out = run("query", "--align", "-i", gp, "-a",
+              gp + ".column.annodbg.npz", both_fa)
+    if out.splitlines() != [f"{i}\t{n}\t{n}" for i, (n, _) in
+                            enumerate(both)]:
+        raise AssertionError(f"CLI query --align on the primary graph: "
+                             f"{out.splitlines()[:3]}")
+    log(f"CLI (in process, --device {device}, {time.time() - t0:.1f} s): "
+        f"build of two files with -v -p 4 --mask-dummy --clear-dummy "
+        f"--threads = {gold} nodes (numpy), from a stdin list = the same "
+        f"graph, --fwd-and-reverse = {closure} nodes (numpy closure), from "
+        f"count sidecars = numpy weights; stats --validate --count-dummy "
+        f"--print --print-internal OK; annotate --header-delimiter "
+        f"--header-comment-delim --count-kmers labels; query --query-counts "
+        f"/ --count-quantiles / --print-signature --fwd-and-reverse report "
+        f"every record's k-mers; align and query --align on the primary "
+        f"graph: every record and reverse complement aligned in full and "
+        f"labelled")
+
 
 def phase_cli(device):
     from metagraph_tpu_torch.graph.io import load_graph
@@ -1093,6 +1563,7 @@ def phase_cli(device):
         gold = int((counts >= 2).sum())
         if load_graph(gk, device=device).num_nodes() != gold:
             raise AssertionError(f"CLI build from KMC: not {gold} nodes")
+        cli_surface(tmp, names, list(seqs.values()), gp, both_fa, device)
     log(f"CLI build/annotate/query/query --align/align/align --json/stats "
         f"--device {device}: exit 0; each of {len(names)} records labelled "
         f"with its own name and aligned to its graph with score 2*len and "
@@ -1130,9 +1601,10 @@ def main():
         return out
 
     summary = timed(phase_kernels, dev)
-    build_launches, (align_launches, _), _ = timed(phase_main_path, dev)
+    build_launches, (align_launches, _), _, _ = timed(phase_main_path, dev)
     primary_launches = timed(phase_primary, dev)
     timed(phase_kmc, dev)
+    timed(phase_sidecar, dev)
     timed(phase_cli, "cuda")
 
     kernels = []

@@ -9,6 +9,9 @@ batched search per suffix length. Extension is the lockstep beam DP of
 ``align/batch_extender.py`` on the graph's device; CIGARs come from the
 batched full DP and traceback, and the score-only path
 (``with_cigar=False``) takes its ends from the ``pallas_dp`` kernel.
+A primary graph aligns through ``CanonicalDbg`` (virtual node ids, so a
+read's reverse complement aligns as a forward read); suffix seeds there
+fail as in the JAX package (``SuffixSeedsOnPrimaryGraph``).
 
 The scoring tables, ``affine_semiglobal``, ``_compress_ops_codes`` and
 ``GraphAlignment`` are pure numpy, copied from the JAX package (the port
@@ -237,12 +240,23 @@ def affine_semiglobal(query: np.ndarray, ref: np.ndarray, sub: np.ndarray,
     return best, int(q_end), int(r_end), ops[::-1]
 
 
+class SuffixSeedsOnPrimaryGraph(NotImplementedError):
+    """A read needs suffix seeds on a primary graph (``CanonicalDbg``),
+    where the reference aligner fails; the port fails with it."""
+
+
 class Aligner:
-    """Seed and extend against a DbgSuccinct (reference DBGAligner), on
-    the graph's device."""
+    """Seed and extend against a DbgSuccinct, or a primary graph wrapped
+    in ``CanonicalDbg`` (reference DBGAligner), on the graph's device.
+    On a primary graph the reads with a full-k seed align as in the JAX
+    package; a read that needs suffix seeds raises
+    ``SuffixSeedsOnPrimaryGraph``."""
 
     def __init__(self, graph, config: Optional[AlignerConfig] = None):
-        if graph.boss.edge_lanes is None:
+        # a primary graph comes wrapped in CanonicalDbg: its BOSS table
+        # is the base graph's
+        boss = getattr(graph, "base", graph).boss
+        if boss.edge_lanes is None:
             raise NotImplementedError(
                 "alignment on small-state graphs is not yet ported")
         self.graph = graph
@@ -322,6 +336,14 @@ class Aligner:
         if not max_seeds:
             max_seeds = self.config.max_seeds_per_locus
         g = self.graph
+        if not codes_l:
+            return []
+        if not hasattr(g, "boss"):
+            raise SuffixSeedsOnPrimaryGraph(
+                "a read without a full k-mer seed needs suffix seeds, which "
+                "the reference aligner does not search on primary graphs "
+                "(metagraph_tpu/align/aligner.py:337, _suffix_seeds, reads "
+                "graph.boss, which CanonicalDbg lacks: AttributeError)")
         K = g.k
         B = g.alphabet.bits_per_char
         lanes_all = g.boss.edge_lanes

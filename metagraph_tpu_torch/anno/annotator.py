@@ -98,6 +98,10 @@ class Annotation:
     def num_labels(self) -> int:
         return len(self.encoder)
 
+    @property
+    def representation(self) -> str:
+        return type(self.matrix).__name__.lower()
+
     def save(self, path: str):
         d = self.matrix.to_npz_dict()
         # fixed-width unicode: loadable with allow_pickle=False

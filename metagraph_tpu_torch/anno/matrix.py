@@ -94,6 +94,39 @@ class RowSparse:
         return torch.zeros((self.num_cols,), dtype=torch.int64,
                            device=w.device).index_add_(0, col.long(), w)
 
+    def _expand_rows(self, row_idx: torch.Tensor):
+        """(query index, clamped entry index, valid) over the entries of
+        the given rows, or None when there are none."""
+        lo, hi = self.row_ranges(row_idx)
+        cap = int(torch.sum(hi - lo)) if self.nnz else 0
+        if cap == 0:
+            return None
+        q, flat, valid = _expand_intervals(lo, hi, cap)
+        return q, torch.clamp(flat, 0, self.nnz - 1), valid
+
+    def _dense(self, row_idx: torch.Tensor, vals, dtype) -> torch.Tensor:
+        """(Q, num_cols) with ``vals(entry index)`` at each set bit."""
+        Q, C = row_idx.shape[0], self.num_cols
+        out = torch.zeros((Q * C + 1,), dtype=dtype, device=self.rows.device)
+        hits = self._expand_rows(row_idx)
+        if hits is not None:
+            q, fc, valid = hits
+            key = torch.where(valid, q * C + self.cols[fc].long(), Q * C)
+            out.index_add_(0, key, vals(fc).to(dtype))
+        return out[:Q * C].view(Q, C)
+
+    def presence(self, row_idx: torch.Tensor) -> torch.Tensor:
+        """(Q, num_cols) bool: the set bits of each queried row (the
+        per-k-mer signature of --print-signature)."""
+        return self._dense(row_idx, torch.ones_like, torch.int32) > 0
+
+    def values_dense(self, row_idx: torch.Tensor) -> torch.Tensor:
+        """(Q, num_cols) int32 values of each queried row, 0 where unset
+        (the reference IntMatrix::get_row_values)."""
+        if self.values is None:
+            raise ValueError("values_dense needs a matrix with values")
+        return self._dense(row_idx, lambda fc: self.values[fc], torch.int32)
+
     # -- serialization -----------------------------------------------------
 
     def to_npz_dict(self, prefix: str = "") -> dict:

@@ -4,18 +4,23 @@ stats, on basic, canonical and primary DNA graphs.
 PyTorch counterpart of ``metagraph_tpu/cli/main.py`` for the subset the
 port covers; stdout is byte for byte that of the JAX CLI. Every command
 takes ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of
-the kernels). Any other subcommand or flag exits non-zero with "not yet
-ported".
+the kernels), the global ``-v``, ``-p`` and ``--debug``, and the JAX
+CLI's inert reference options (a warning names each one set). Any other
+subcommand or flag exits non-zero with "not yet ported".
 
-    python -m metagraph_tpu_torch.cli.main build -k 31 -o graph reads.fa
+    python -m metagraph_tpu_torch.cli.main build -k 31 -o graph a.fa b.fa
+    find . -name "*.fa" | python -m metagraph_tpu_torch.cli.main build -k 31
     python -m metagraph_tpu_torch.cli.main build -k 31 --mode primary -o g reads.fa
     python -m metagraph_tpu_torch.cli.main build -k 31 --min-count 2 -o g db.kmc_pre
+    python -m metagraph_tpu_torch.cli.main build -k 31 --count-kmers -o g contigs.fasta.gz
     python -m metagraph_tpu_torch.cli.main annotate -i graph --anno-header reads.fa
     python -m metagraph_tpu_torch.cli.main query -i graph -a graph.column.annodbg.npz q.fa
+    python -m metagraph_tpu_torch.cli.main query --count-quantiles "0 0.5 1" \
+        -i graph -a graph.column.annodbg.npz q.fa
     python -m metagraph_tpu_torch.cli.main align -i graph reads.fa
     python -m metagraph_tpu_torch.cli.main query --align -i graph \
         -a graph.column.annodbg.npz q.fa
-    python -m metagraph_tpu_torch.cli.main stats graph
+    python -m metagraph_tpu_torch.cli.main stats --validate --count-dummy graph
 """
 
 from __future__ import annotations
@@ -35,6 +40,35 @@ _NOT_PORTED = ("clean", "extend", "merge", "concatenate", "compare",
                "worker")
 
 
+# reference options the JAX CLI accepts on every subcommand with no
+# effect; setting one logs a warning naming it
+_PARITY_INERT = [
+    ("--threads", dict(type=int, default=None)),
+    ("--parallel-nodes", dict(type=int, default=None)),
+    ("--bins-per-thread", dict(type=int, default=None)),
+    ("--sequentially", dict(action="store_true")),
+    ("--cache", dict(type=int, default=None)),
+    ("--cache-size", dict(type=int, default=None)),
+    ("--disk-cap-gb", dict(type=int, default=None)),
+    ("--bloom-bpk", dict(type=float, default=None)),
+    ("--bloom-max-num-hash-functions", dict(type=int, default=None)),
+    ("--dynamic", dict(action="store_true")),
+    ("--complete", dict(action="store_true")),
+    ("--sparse", dict(action="store_true")),
+    ("--num-kmers-in-seq", dict(type=int, default=None)),
+    ("--frequency", dict(type=int, default=None)),
+    ("--distance", dict(type=int, default=None)),
+    ("--coord-binsize", dict(type=int, default=None)),
+    ("--align-length", dict(type=int, default=None)),
+    ("--filter-by-kmer", dict(action="store_true")),
+    ("--intersected-anno", dict(default=None)),
+    ("--annotator", dict(default=None)),
+]
+_INERT_ATTRS = [(f.lstrip("-").replace("-", "_"), f)
+                for f, _ in _PARITY_INERT]
+_REVCOMP = bytes.maketrans(b"ACGTacgt", b"TGCAtgca")
+
+
 def log(msg: str):
     print(f"[{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
 
@@ -52,50 +86,102 @@ def _load_graph(path, device, wrap_primary: bool = True):
 
 def cmd_build(args):
     from ..graph import io as graph_io
-    from ..graph.boss_construct import build_boss_from_codes
+    from ..graph.boss_construct import build_boss
     from ..graph.dbg_succinct import DbgSuccinct
     from ..kmer.alphabets import DNA
-    from ..seqio.fasta import read_and_encode
+    from ..seqio.fasta import kmer_counts_sidecar, parse_records
 
-    if len(args.fnames) != 1:
-        raise SystemExit("build: exactly one input file (more is not yet "
-                         "ported)")
+    if not args.fnames and not sys.stdin.isatty():
+        # `find . -name "*.fa" | metagraph build ...`: the input file list
+        # comes from stdin
+        args.fnames = [ln.strip() for ln in sys.stdin if ln.strip()]
+    if not args.fnames:
+        raise SystemExit("build: no input files (arguments or a stdin list)")
+    if args.alphabet != "DNA":
+        raise SystemExit(f"build: --alphabet {args.alphabet} is not yet "
+                         f"ported (DNA only)")
+    if args.state != "fast":
+        raise SystemExit("build: --state small is not yet ported")
     bits_per_count = args.count_width if args.count_kmers else 0
     t0 = time.time()
-    if args.fnames[0].endswith((".kmc_pre", ".kmc_suf")):
+    if any(f.endswith((".kmc_pre", ".kmc_suf")) for f in args.fnames):
+        if len(args.fnames) != 1:
+            raise SystemExit("build: one KMC database per build")
         boss = _build_from_kmc(args, bits_per_count)
-    elif args.fnames[0].endswith((".vcf", ".vcf.gz")):
+    elif any(f.endswith((".vcf", ".vcf.gz")) for f in args.fnames):
         raise SystemExit("build: VCF input is not yet ported")
+    elif args.count_kmers and all(kmer_counts_sidecar(f)
+                                  for f in args.fnames):
+        boss = _build_weighted_from_sidecars(args, bits_per_count)
     else:
-        codes = read_and_encode(args.fnames[0], DNA)
-        log(f"Encoded {len(codes) / 1e6:.1f} M chars")
+        seqs = [r.seq for f in args.fnames for r in parse_records(f)]
+        if args.fwd_and_reverse:
+            # each sequence also counts as its reverse complement
+            seqs.extend(s.translate(_REVCOMP)[::-1] for s in list(seqs))
+        log(f"Read {len(seqs)} sequences "
+            f"({sum(map(len, seqs)) / 1e6:.1f} Mbp)")
         t0 = time.time()
-        boss = build_boss_from_codes(codes, args.k, alphabet=DNA,
-                                     mode=args.mode,
-                                     bits_per_count=bits_per_count,
-                                     device=args.device)
+        boss = build_boss(seqs, args.k, alphabet=DNA, mode=args.mode,
+                          bits_per_count=bits_per_count, device=args.device)
     log(f"Graph construction: {time.time() - t0:.2f} s")
     graph = DbgSuccinct.from_boss(boss, DNA, args.mode)
     log(f"Serialized to {graph_io.save_graph(args.outfile_base, graph)}")
 
 
+def sidecar_kmers(fnames: Sequence[str], k: int, alphabet):
+    """The k-mers of contigs with count sidecars as ((n, k) uint8 codes,
+    (n,) uint32 counts): every window of a record with its count, those
+    holding a byte outside the alphabet dropped."""
+    from ..seqio.fasta import iter_weighted_records
+    tbl = alphabet.encode_table()
+    chars_parts, count_parts = [], []
+    for f in fnames:
+        for rec, counts in iter_weighted_records(f):
+            if len(rec.seq) < k:
+                continue
+            codes = tbl[np.frombuffer(rec.seq, np.uint8)]
+            win = np.lib.stride_tricks.sliding_window_view(codes, k)
+            valid = (win != 255).all(axis=1)
+            chars_parts.append(win[valid])
+            count_parts.append(counts[valid])
+    if not chars_parts:
+        return np.zeros((0, k), np.uint8), np.zeros((0,), np.uint32)
+    return np.concatenate(chars_parts), np.concatenate(count_parts)
+
+
+def _build_weighted_from_sidecars(args, bits_per_count: int):
+    """Contigs with per-k-mer count sidecars: each k-mer contributes its
+    count, duplicates summed, weights saturated at ``--count-width``
+    bits."""
+    from ..kmer.alphabets import DNA
+    chars, counts = sidecar_kmers(args.fnames, args.k, DNA)
+    log(f"Weighted input: {len(chars)} k-mers from count sidecars")
+    return _build_counted(chars, counts, args, bits_per_count)
+
+
 def _build_from_kmc(args, bits_per_count: int):
-    """A KMC database's k-mers, count-filtered, as a graph. Canonical and
-    primary both build the canonical closure, as the JAX CLI does; the
-    graph is then labelled with the requested mode."""
-    from ..graph.boss_construct import (build_boss_from_kmers,
-                                        collect_counted_kmers)
+    """A KMC database's k-mers, count-filtered, as a graph."""
     from ..seqio.kmc import read_kmers
     chars, counts, hdr = read_kmers(args.fnames[0], min_count=args.min_count,
                                     max_count=args.max_count)
     log(f"KMC database: {len(chars)} k-mers, k={hdr.kmer_length}")
     if args.k != hdr.kmer_length:
         raise SystemExit(f"build: -k {args.k} != KMC k {hdr.kmer_length}")
+    return _build_counted(chars, counts, args, bits_per_count)
+
+
+def _build_counted(chars, counts, args, bits_per_count: int):
+    """Counted k-mers ((n, k) codes, (n,) counts) as a graph. Canonical
+    and primary both build the canonical closure, as the JAX CLI does;
+    the graph is then labelled with the requested mode."""
+    from ..graph.boss_construct import (build_boss_from_kmers,
+                                        collect_counted_kmers)
+    from ..kmer.alphabets import DNA
     mode = "basic" if args.mode == "basic" else "canonical"
     lanes, cnts, n = collect_counted_kmers(
-        chars, counts, args.k, canonical=mode == "canonical",
+        chars, counts, args.k, DNA, canonical=mode == "canonical",
         device=args.device)
-    return build_boss_from_kmers(lanes, cnts, n, args.k, mode=mode,
+    return build_boss_from_kmers(lanes, cnts, n, args.k, DNA, mode=mode,
                                  bits_per_count=bits_per_count)
 
 
@@ -110,61 +196,159 @@ def _is_annotation_file(path) -> bool:
         return False
 
 
-def _print_annotation_stats(f, device):
+def _print_annotation_stats(f, device, print_col_names: bool = False):
     from ..anno.annotator import Annotation
     ann = Annotation.load(f, device=device)
     log(f"Statistics for annotation '{f}'")
     print("=================== ANNOTATION STATS ===================")
     print(f"labels:  {ann.num_labels}")
+    if print_col_names:
+        for label in ann.encoder.labels:
+            print(f"<{label}>")
     print(f"objects: {ann.matrix.num_rows}")
     density = ann.matrix.nnz / max(ann.matrix.num_rows, 1) \
         / max(ann.num_labels, 1)
     print(f"density: {density:.6g}")
-    print("representation: column")
+    rep = {"rowsparse": "column"}.get(ann.representation, ann.representation)
+    print(f"representation: {rep}")
     print("========================================================")
 
 
 def cmd_stats(args):
-    from ..graph.io import index_bytes
     for f in args.fnames:
         if _is_annotation_file(f):
-            _print_annotation_stats(f, args.device)
+            _print_annotation_stats(f, args.device, args.print_col_names)
             continue
         g = _load_graph(f, args.device, wrap_primary=False)
         log(f"Statistics for graph '{f}'")
-        print("====================== GRAPH STATS =====================")
-        print(f"k: {g.k}")
-        print(f"nodes (k): {g.num_nodes()}")
-        print(f"mode: {g.mode}")
-        boss = g.boss
-        if boss.weights is not None:
-            w = boss.weights.cpu().numpy()
-            nnz = int((w != 0).sum())
-            print(f"nnz weights: {nnz}")
-            # %.6g: C++ std::cout default double formatting
-            print(f"avg weight: {w.sum() / max(nnz, 1):.6g}")
-        nbytes = index_bytes(g)
-        print(f"index bytes: {nbytes}")
-        print(f"bytes/edge: {nbytes / max(boss.num_edges, 1):.3g}")
-        print("========================================================")
-        print("====================== BOSS STATS ======================")
-        print(f"k: {boss.k + 1}")
-        print(f"nodes (k-1): {int(boss.num_nodes())}")
-        print(f"edges ( k ): {boss.num_edges}")
-        print(f"state: {'fast' if boss.edge_lanes is not None else 'small'}")
-        counts = boss.char_counts_W().cpu().numpy()
-        letters = g.alphabet.letters
-        pairs = ", ".join(f"'{letters[i]}': {int(counts[i])}"
-                          for i in range(boss.alph_size))
-        print("W stats: {" + pairs + "}")
-        F = boss.F.cpu().numpy()
-        fparts = [f"'{letters[i - 1]}': {int(F[i] - F[i - 1])}"
-                  for i in range(1, boss.alph_size)]
-        fparts.append(f"'{letters[-1]}': {boss.num_edges - int(F[-1])}")
-        print("F stats: {" + ", ".join(fparts) + "}")
-        suf_chars = (16 // boss.bits_per_char) if boss.lut is not None else 0
-        print(f"indexed suffix length: {suf_chars}")
-        print("========================================================")
+        _print_graph_stats(g, args)
+
+
+def _print_graph_stats(g, args):
+    from ..graph.io import index_bytes
+    print("====================== GRAPH STATS =====================")
+    print(f"k: {g.k}")
+    print(f"nodes (k): {g.num_nodes()}")
+    print(f"mode: {g.mode}")
+    boss = g.boss
+    if boss.weights is not None:
+        w = boss.weights.cpu().numpy()
+        nnz = int((w != 0).sum())
+        print(f"nnz weights: {nnz}")
+        # %.6g: C++ std::cout default double formatting
+        print(f"avg weight: {w.sum() / max(nnz, 1):.6g}")
+    nbytes = index_bytes(g)
+    print(f"index bytes: {nbytes}")
+    print(f"bytes/edge: {nbytes / max(boss.num_edges, 1):.3g}")
+    print("========================================================")
+    print("====================== BOSS STATS ======================")
+    print(f"k: {boss.k + 1}")
+    print(f"nodes (k-1): {int(boss.num_nodes())}")
+    print(f"edges ( k ): {boss.num_edges}")
+    print(f"state: {'fast' if boss.edge_lanes is not None else 'small'}")
+    counts = boss.char_counts_W().cpu().numpy()
+    letters = g.alphabet.letters
+    pairs = ", ".join(f"'{letters[i]}': {int(counts[i])}"
+                      for i in range(boss.alph_size))
+    print("W stats: {" + pairs + "}")
+    if args.print_internal:
+        # the reference's BOSS::print_internal_representation
+        W = boss.W.cpu().numpy()
+        last = boss.last_rank.bits_host()
+        print("F:", " ".join(str(int(x)) for x in boss.F.cpu().numpy()))
+        sys.stdout.write("".join(f"{i}\t{int(last[i])}\t{int(W[i])}\n"
+                                 for i in range(1, boss.num_edges + 1)))
+    if args.print_graph:
+        _print_boss_table(boss, letters)
+    F = boss.F.cpu().numpy()
+    fparts = [f"'{letters[i - 1]}': {int(F[i] - F[i - 1])}"
+              for i in range(1, boss.alph_size)]
+    fparts.append(f"'{letters[-1]}': {boss.num_edges - int(F[-1])}")
+    print("F stats: {" + ", ".join(fparts) + "}")
+    if args.count_dummy and boss.edge_lanes is not None:
+        nsrc, nsink = (int(x) for x in boss.num_dummy_edges())
+        print(f"dummy source edges: {nsrc}")
+        print(f"dummy sink edges: {nsink}")
+        print(f"real edges: {boss.num_edges - nsrc - nsink}")
+    # the top-16-bit search table plays the role of the reference's
+    # index_suffix_ranges
+    suf_chars = (16 // boss.bits_per_char) if boss.lut is not None else 0
+    print(f"indexed suffix length: {suf_chars}")
+    if args.validate:
+        errs = validate_graph(g)
+        print(f"validation: {'OK' if not errs else 'FAILED'}")
+        for e in errs:
+            print(f"  invariant violated: {e}")
+        if errs:
+            sys.exit(1)
+    print("========================================================")
+
+
+def _print_boss_table(boss, letters: str):
+    """The reference's BOSS::print: per edge its index, source node (the
+    edge k-mer less its label), W char (minus-flagged ones lower case)
+    and last bit."""
+    from ..kmer.packing import unpack_to_chars
+    if boss.edge_lanes is None:
+        raise SystemExit("stats --print: small-state graphs are not yet "
+                         "ported")
+    W = boss.W.cpu().numpy()
+    last = boss.last_rank.bits_host()
+    sigma = boss.alph_size
+    chars = unpack_to_chars(boss.edge_lanes, boss.k + 1,
+                            boss.bits_per_char).cpu().numpy()
+    nodes = np.frombuffer(letters.encode(), np.uint8)[chars[:, :-1]]
+    wchar = ["$"] + [letters[w % sigma].lower() if w >= sigma else letters[w]
+                     for w in range(1, 2 * sigma)]
+    print("index\tnode\tW\tlast")
+    sys.stdout.write("".join(
+        f"{i}\t{nodes[i - 1].tobytes().decode()}\t{wchar[W[i]]}"
+        f"\t{int(last[i])}\n" for i in range(1, boss.num_edges + 1)))
+
+
+def validate_graph(g) -> list:
+    """BOSS structural invariants (stats --validate), batched on the
+    graph's device; returns the violations. F nondecreasing from 0, W in
+    [0, 2 sigma), one last bit per node; on up to 1024 edges sampled with
+    ``default_rng(0)``, fwd lands on a node ending in the edge's label
+    and bwd stays in range; every edge k-mer maps back to its own row."""
+    import torch
+    errs = []
+    boss = g.boss
+    dev = boss.device
+    m = boss.num_edges
+    F = boss.F.cpu().numpy()
+    if not (np.diff(F) >= 0).all() or F[0] != 0:
+        errs.append(f"F not nondecreasing from 0: {F.tolist()}")
+    W = boss.W[1:m + 1].cpu().numpy()
+    if W.size and (W < 0).any() or (W >= 2 * boss.alph_size).any():
+        errs.append("W values outside [0, 2*sigma)")
+    n_nodes = int(boss.num_nodes())
+    n_last = int(boss.last_rank.bits_host()[1:m + 1].sum())
+    if n_last != n_nodes:
+        errs.append(f"last popcount {n_last} != num_nodes {n_nodes}")
+    rng = np.random.default_rng(0)
+    sample = np.unique(rng.integers(1, m + 1, min(1024, m)))
+    Ws = boss.get_W(torch.from_numpy(sample).to(dev)).cpu().numpy()
+    real = (Ws % boss.alph_size) != 0
+    if real.any():
+        c = (Ws[real] % boss.alph_size).astype(np.int32)
+        tgt = boss.fwd(torch.from_numpy(sample[real].astype(np.int32)).to(dev),
+                       torch.from_numpy(c).to(dev))
+        back = boss.bwd(tgt).cpu().numpy()
+        ok = boss.get_node_last_value(tgt).cpu().numpy() == c
+        if not ok.all():
+            errs.append(f"fwd label mismatch on {int((~ok).sum())} of "
+                        f"{len(ok)} sampled edges")
+        if (back < 1).any() or (back > m).any():
+            errs.append("bwd out of range on sampled edges")
+    if boss.edge_lanes is not None:
+        rows = boss.map_to_edges(boss.edge_lanes)
+        want = torch.arange(1, rows.shape[0] + 1, device=rows.device)
+        bad = int(torch.sum(rows != want))
+        if bad:
+            errs.append(f"map_to_edges not identity on {bad} rows")
+    return errs
 
 
 def cmd_annotate(args):
@@ -179,7 +363,17 @@ def cmd_annotate(args):
             if args.anno_filename:
                 labels.append(f)
             if args.anno_header:
-                labels.append(rec.name.decode())
+                name = rec.name.decode()
+                if args.header_comment_delim and rec.comment:
+                    # the header's comment joins its name first
+                    name = (name + args.header_comment_delim
+                            + rec.comment.decode())
+                if args.header_delimiter:
+                    # one label per non-empty field
+                    labels.extend(x for x in name.split(args.header_delimiter)
+                                  if x)
+                else:
+                    labels.append(name)
             labels.extend(args.anno_label or [])
             items.append((rec.seq, labels))
     ann = annotate_sequences(g, items, with_counts=args.count_kmers).finalize()
@@ -191,20 +385,46 @@ def cmd_annotate(args):
         f"({ann.num_labels} labels, {ann.matrix.nnz} relations)")
 
 
+def _query_batch(bq, seqs, args):
+    """One batch through the query mode the flags select, in the JAX
+    CLI's order (signature, quantiles, k-mer counts, label counts,
+    labels): per read its result (empty when unlabeled) and its output
+    fields after the read's index and name."""
+    adbg = bq.adbg
+    if args.print_signature:
+        results = bq.get_top_label_signatures_batch(
+            seqs, args.num_top_labels, args.discovery_fraction)
+        return results, lambda res: "".join(
+            f"\t<{label}>:{int(mask.sum())}:"
+            f"{(mask.astype(np.uint8) + 48).tobytes().decode()}:"
+            f"{adbg.score_kmer_presence_mask(mask)}" for label, mask in res)
+    if args.count_quantiles:
+        qs = [float(x) for x in args.count_quantiles.split()]
+        results = bq.get_label_count_quantiles_batch(
+            seqs, args.num_top_labels, args.discovery_fraction, qs)
+        return results, lambda res: "".join(
+            f"\t<{label}>:" + ":".join(str(q) for q in quants)
+            for label, quants in res)
+    if args.count_labels or args.query_counts:
+        results = bq.get_top_labels_batch(
+            seqs, args.num_top_labels, args.discovery_fraction,
+            with_kmer_counts=args.query_counts)
+        return results, lambda res: "".join(f"\t<{label}>:{c}"
+                                            for label, c in res)
+    results = bq.get_labels_batch(seqs, args.discovery_fraction)
+    return results, lambda res: "\t" + args.anno_labels_delimiter.join(res)
+
+
 def cmd_query(args):
     from ..anno.annotator import Annotation
     from ..engine.annotated_dbg import AnnotatedDbg, BatchQuery
-    from ..graph.canonical import CanonicalDbg
-    from ..seqio.fasta import BatchFeeder, iter_batches
+    from ..seqio.fasta import BatchFeeder, SeqRecord, iter_batches
 
     g = _load_graph(args.infile_base, args.device)
     ann = Annotation.load(args.annotation, device=args.device)
     bq = BatchQuery(AnnotatedDbg(graph=g, annotation=ann))
     aligner = None
     if args.align or args.batch_align:
-        if isinstance(g, CanonicalDbg):
-            raise SystemExit("query --align: primary graphs are not yet "
-                             "ported")
         from ..align.aligner import Aligner, AlignerConfig
         aligner = Aligner(g, AlignerConfig(
             min_exact_match=args.align_min_exact_match))
@@ -214,48 +434,49 @@ def cmd_query(args):
     # prefetch: host parsing of the next batch overlaps device work
     for batch in BatchFeeder(iter_batches(args.fnames,
                                           batch_bytes=args.batch_size)):
+        if args.fwd_and_reverse:
+            # every record is queried forward and as its reverse
+            # complement, one output line each
+            batch = [r for rec in batch for r in (rec, SeqRecord(
+                name=rec.name, seq=rec.seq.translate(_REVCOMP)[::-1]))]
         if aligner is not None:
             # reference query --align / --batch-align: each read is
             # replaced by its best path spelling (score-only alignment)
-            all_res = aligner.align_batch([rec.seq for rec in batch],
-                                          with_cigar=False)
+            all_res = _align_or_exit(aligner, [rec.seq for rec in batch],
+                                     "query --align", with_cigar=False)
             for rec, res in zip(batch, all_res):
                 if res:
                     rec.seq = res[0].sequence
-        seqs = [r.seq for r in batch]
-        if args.count_labels:
-            results = bq.get_top_labels_batch(seqs, args.num_top_labels,
-                                              args.discovery_fraction)
-        else:
-            results = bq.get_labels_batch(seqs, args.discovery_fraction)
+        results, fields = _query_batch(bq, [r.seq for r in batch], args)
         for rec, res in zip(batch, results):
             if not res and args.suppress_unlabeled:
                 idx += 1
                 continue
-            head = f"{idx}\t{rec.name.decode()}"
-            if args.count_labels:
-                out.write("\t".join([head] + [f"<{l}>:{c}" for l, c in res])
-                          + "\n")
-            else:
-                out.write(head + "\t" + args.anno_labels_delimiter.join(res)
-                          + "\n")
+            out.write(f"{idx}\t{rec.name.decode()}{fields(res)}\n")
             idx += 1
             n += 1
     dt = max(time.time() - t0, 1e-9)
     log(f"Queried {n} sequences in {dt:.2f} s ({n / dt:.0f} reads/s)")
 
 
+def _align_or_exit(aligner, seqs, what: str, **kw):
+    """``aligner.align_batch``; a read that needs suffix seeds on a
+    primary graph exits non-zero, as the reference does there."""
+    from ..align.aligner import SuffixSeedsOnPrimaryGraph
+    try:
+        return aligner.align_batch(seqs, **kw)
+    except SuffixSeedsOnPrimaryGraph as e:
+        raise SystemExit(f"{what}: {e}") from e
+
+
 def cmd_align(args):
     from ..align.aligner import Aligner, AlignerConfig
-    from ..graph.io import load_graph
     from ..seqio.fasta import parse_records
 
     if args.outfile_base and args.outfile_base.endswith(".gfa"):
         raise SystemExit("align: the GFA path mode (-o *.gfa) is not yet "
                          "ported")
-    g = load_graph(args.infile_base, device=args.device)
-    if g.mode == "primary":
-        raise SystemExit("align: primary graphs are not yet ported")
+    g = _load_graph(args.infile_base, args.device)
     cfg = AlignerConfig(
         match_score=args.match_score,
         mm_transition_penalty=args.mm_transition_penalty,
@@ -313,8 +534,9 @@ def cmd_align(args):
             out.close()
         return
     t0 = time.time()
-    all_results = aligner.align_batch(
-        [r.seq for r in recs], both_strands=args.align_both_strands,
+    all_results = _align_or_exit(
+        aligner, [r.seq for r in recs], "align",
+        both_strands=args.align_both_strands,
         num_alternative_paths=args.num_alternative_paths)
     dt = max(time.time() - t0, 1e-9)
     log(f"Aligned {len(recs)} reads in {dt:.2f} s ({len(recs) / dt:.0f} "
@@ -353,6 +575,14 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")
+        # the JAX CLI's global flags, accepted on every subcommand with no
+        # effect here: -v / --debug turn on its telemetry spans (not yet
+        # ported), -p its thread count (PyTorch sizes its own pools)
+        sp.add_argument("-v", "--verbose", action="store_true")
+        sp.add_argument("-p", "--parallel", type=int, default=1)
+        sp.add_argument("--debug", action="store_true")
+        for flag, fkw in _PARITY_INERT:
+            sp.add_argument(flag, **fkw)
         sp.set_defaults(func=func)
         return sp
 
@@ -366,10 +596,35 @@ def build_parser() -> argparse.ArgumentParser:
                     help="KMC input: drop k-mers counted fewer times")
     sp.add_argument("--max-count", type=int, default=None,
                     help="KMC input: drop k-mers counted more times")
+    # dummy edges are always masked and erased, and the top-16-bit search
+    # table plays the role of --index-ranges: accepted for the
+    # reference's workflows, no effect
+    sp.add_argument("--mask-dummy", action="store_true")
+    sp.add_argument("--clear-dummy", action="store_true")
+    sp.add_argument("--no-postprocessing", action="store_true")
+    sp.add_argument("--index-ranges", type=int, default=None)
+    sp.add_argument("--graph", default="succinct")
+    sp.add_argument("--reference", default=None,
+                    help="reference FASTA for VCF inputs")
+    sp.add_argument("--alphabet", default="DNA",
+                    choices=["DNA", "DNA5", "DNACaseSent", "Protein"])
+    sp.add_argument("--fwd-and-reverse", action="store_true",
+                    help="also build from each sequence's reverse "
+                         "complement")
+    sp.add_argument("--state", choices=["fast", "small"], default="fast")
     sp.add_argument("-o", "--outfile-base", default="graph")
     sp.add_argument("fnames", nargs="*")
 
     sp = add("stats", cmd_stats)
+    sp.add_argument("--count-dummy", action="store_true")
+    sp.add_argument("--print", dest="print_graph", action="store_true",
+                    help="print the decoded BOSS table")
+    sp.add_argument("--print-internal", action="store_true",
+                    help="print the internal W / last / F representation")
+    sp.add_argument("--print-col-names", action="store_true")
+    sp.add_argument("--validate", action="store_true",
+                    help="check the BOSS structural invariants")
+    sp.add_argument("-a", "--annotation", default=None)
     sp.add_argument("fnames", nargs="+")
 
     sp = add("annotate", cmd_annotate)
@@ -377,17 +632,32 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("-o", "--outfile-base", default=None)
     sp.add_argument("--anno-filename", action="store_true")
     sp.add_argument("--anno-header", action="store_true")
+    sp.add_argument("--header-delimiter", default="",
+                    help="split sequence headers into several labels")
+    sp.add_argument("--header-comment-delim", default="",
+                    help="join a header with its comment by this "
+                         "delimiter before taking labels")
     sp.add_argument("--anno-label", action="append")
     sp.add_argument("--count-kmers", action="store_true")
+    # one annotation over all inputs either way (as the JAX CLI)
+    sp.add_argument("--separately", action="store_true")
     sp.add_argument("fnames", nargs="+")
 
     sp = add("query", cmd_query)
     sp.add_argument("-i", "--infile-base", required=True)
     sp.add_argument("-a", "--annotation", required=True)
     sp.add_argument("--count-labels", action="store_true")
+    sp.add_argument("--count-kmers", "--query-counts", dest="query_counts",
+                    action="store_true",
+                    help="report per label the sum of the annotation's "
+                         "k-mer counts")
+    sp.add_argument("--count-quantiles", default=None,
+                    help="space-separated quantiles in [0, 1]")
+    sp.add_argument("--print-signature", action="store_true")
     sp.add_argument("--suppress-unlabeled", action="store_true")
     sp.add_argument("--num-top-labels", type=int, default=2 ** 62)
     sp.add_argument("--discovery-fraction", type=float, default=0.7)
+    sp.add_argument("--fwd-and-reverse", action="store_true")
     sp.add_argument("--labels-delimiter", dest="anno_labels_delimiter",
                     default=":")
     sp.add_argument("--batch-size", type=int, default=100 << 20)
@@ -466,6 +736,10 @@ def main(argv: Optional[Sequence[str]] = None):
     if unknown:
         raise SystemExit(f"metagraph {args.command}: "
                          f"{' '.join(unknown)}: not yet ported")
+    for attr, flag in _INERT_ATTRS:
+        if getattr(args, attr) not in (None, False):
+            log(f"WARNING: {flag} is accepted for reference-script "
+                f"compatibility but has no effect in this implementation")
     args.func(args)
 
 

@@ -174,6 +174,12 @@ class SymbolRank:
     def n(self) -> int:
         return self.n_seq
 
+    def __getitem__(self, i) -> torch.Tensor:
+        """seq[i] as int32 (i a tensor of positions within [0, n))."""
+        i = torch.as_tensor(i, device=self.seq_words.device).to(torch.int64)
+        w = packed.as_uint(self.seq_words[i >> 2])
+        return ((w >> ((i & 3) * 8)) & 0xFF).to(torch.int32)
+
     def _rows(self, blk: torch.Tensor) -> torch.Tensor:
         """(Q, _WPB) int64 words of the given blocks."""
         return packed.as_uint(self.seq_words.view(-1, _WPB)[blk])
@@ -218,7 +224,11 @@ class SymbolRank:
             lo = torch.where(go_up, mid, lo)
             hi = torch.where(go_up, hi, mid - 1)
         rr = r - bflat[lo * self.sigma + c]
-        hz = _match_bits(self._rows(lo), c[:, None])
+        # r past the symbol's last occurrence (fwd / bwd on a damaged graph
+        # under stats --validate) leaves lo = nb: its answer is meaningless,
+        # but its gather must stay in bounds, as the JAX package's clamped
+        # gather does
+        hz = _match_bits(self._rows(torch.clamp(lo, max=nb - 1)), c[:, None])
         mcnt = packed.popcount32(hz).to(torch.int64)   # per word
         cum = torch.cumsum(mcnt, dim=1)
         j = torch.argmax((cum >= rr[:, None]).to(torch.int32), dim=1)

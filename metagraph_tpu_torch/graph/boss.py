@@ -18,13 +18,14 @@ table of bucket starts over the top 16 bits (``lut``). Indexing is
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..common import packed
 from ..common.ranksel import BitRank, SymbolRank
+from ..kmer import packing
 
 
 @dataclass(frozen=True)
@@ -119,12 +120,53 @@ class Boss:
         """Edge k-mer length."""
         return self.k + 1
 
-    def rank_W(self, i: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def _t(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    def get_W(self, i) -> torch.Tensor:
+        return self.W_rank[torch.clamp(self._t(i), 0, self.W_rank.n_seq - 1)]
+
+    # -- rank / select (the reference's 1-based semantics) ------------------
+
+    def rank_last(self, i) -> torch.Tensor:
+        """#set bits in last[1..i] (last[0] is 0)."""
+        return self.last_rank.rank1(self._t(i))
+
+    def select_last(self, r) -> torch.Tensor:
+        return self.last_rank.select1(self._t(r))
+
+    def rank_W(self, i, c) -> torch.Tensor:
         """#occurrences of c in W[1..i] (W[0] = 0 excluded)."""
-        i = torch.as_tensor(i, device=self.device)
-        c = torch.as_tensor(c, device=self.device)
+        i, c = self._t(i), self._t(c)
         r = self.W_rank.rank(c, i)
         return r - torch.where((c == 0) & (i >= 0), 1, 0)
+
+    def select_W(self, r, c) -> torch.Tensor:
+        """Position of the r-th occurrence of c in W[1..]."""
+        r, c = self._t(r), self._t(c)
+        return self.W_rank.select(c, r + (c == 0).to(r.dtype))
+
+    # -- navigation --------------------------------------------------------
+
+    def get_node_last_value(self, i) -> torch.Tensor:
+        """Last character of the source node of edge i (by F offsets)."""
+        i = self._t(i)
+        c = torch.searchsorted(self.F, i.to(torch.int32).contiguous(),
+                               right=False) - 1
+        return torch.where(i == 0, 0, torch.clamp(c, 0, self.alph_size - 1))
+
+    def fwd(self, i, c) -> torch.Tensor:
+        """Edge row of the target node of edge i (label c, unflagged)."""
+        i, c = self._t(i), self._t(c)
+        return self.select_last(self.NF[c.long()] + self.rank_W(i, c))
+
+    def bwd(self, i) -> torch.Tensor:
+        """Row of the first incoming edge of the source node of edge i."""
+        i = self._t(i)
+        target_node = self.rank_last(i - 1) + 1
+        c = self.get_node_last_value(i)
+        res = self.select_W(target_node - self.NF[c.long()], c)
+        return torch.where(target_node == 1, 1, res)
 
     # -- searching ---------------------------------------------------------
 
@@ -158,6 +200,16 @@ class Boss:
         base = self.rank_W(full, cs)
         flagged = self.rank_W(full, cs + self.alph_size)
         return base + torch.where(cs == 0, 0, flagged)
+
+    def num_dummy_edges(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(#dummy source edges, #dummy sink edges), from the edge k-mers."""
+        if self.edge_lanes is None:
+            raise NotImplementedError(
+                "small-state graphs (no edge_lanes) are not yet ported")
+        B = self.bits_per_char
+        is_src = packing.first_char(self.edge_lanes, B) == 0
+        is_sink = (packing.label(self.edge_lanes, B) == 0) & ~is_src
+        return torch.sum(is_src), torch.sum(is_sink)
 
     def tensors(self):
         """Every index tensor the graph holds (for its byte count)."""

@@ -1,10 +1,13 @@
-"""Host-side FASTA/FastQ reading.
+"""Host-side FASTA/FastQ reading and writing.
 
 Copied from ``metagraph_tpu/seqio/fasta.py`` (that package imports JAX
 at its root, so the port cannot import it). The parser is pure Python;
 the JAX package's C codec (``native/fasta_codec.c``) is not ported yet,
 so ``read_and_encode`` parses in Python and encodes with numpy — the
-same codes the codec gives.
+same codes the codec gives. ``ExtendedFastaWriter`` writes contigs with
+a per-k-mer count sidecar (``<base>.kmer_counts.gz``, one line of
+space-separated counts per record) and ``iter_weighted_records`` reads
+them back, in the JAX package's format.
 """
 
 from __future__ import annotations
@@ -146,3 +149,90 @@ class BatchFeeder:
                     raise self._err
                 return
             yield item
+
+
+class FastaWriter:
+    """Plain or gzipped FASTA writer (reference FastaWriter)."""
+
+    def __init__(self, path: str, header: str = "",
+                 enumerate_sequences: bool = True,
+                 gzip_out: Optional[bool] = None, width: int = 80):
+        if gzip_out is None:
+            gzip_out = path.endswith(".gz")
+        self._f = gzip.open(path, "wb") if gzip_out else open(path, "wb")
+        self._header = header
+        self._count = 0
+        self._enumerate = enumerate_sequences
+        self._width = width
+
+    def write(self, seq: bytes | str, name: Optional[str] = None):
+        if isinstance(seq, str):
+            seq = seq.encode()
+        self._count += 1
+        if name is None:
+            name = (f"{self._header}{self._count}" if self._enumerate
+                    else self._header)
+        self._f.write(b">" + name.encode() + b"\n")
+        for i in range(0, len(seq), self._width):
+            self._f.write(seq[i:i + self._width] + b"\n")
+
+    def close(self):
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class ExtendedFastaWriter(FastaWriter):
+    """FASTA writer with a per-k-mer count sidecar: sequences go to
+    ``<base>.fasta.gz``, counts to ``<base>.kmer_counts.gz``, one text
+    line of space-separated counts per record, in record order."""
+
+    def __init__(self, base: str, k: int, header: str = "",
+                 enumerate_sequences: bool = True):
+        for suf in (".gz", ".fasta"):
+            if base.endswith(suf):
+                base = base[:-len(suf)]
+        super().__init__(base + ".fasta.gz", header, enumerate_sequences)
+        self.k = k
+        self._cf = gzip.open(base + ".kmer_counts.gz", "wb")
+
+    def write(self, seq, counts=None, name: Optional[str] = None):
+        super().write(seq, name)
+        n_kmers = len(seq) - self.k + 1
+        if counts is None:
+            counts = np.ones(n_kmers, np.int64)
+        counts = np.asarray(counts)
+        if len(counts) != n_kmers:
+            raise ValueError(f"{len(counts)} counts for {n_kmers} k-mers")
+        self._cf.write(" ".join(map(str, counts.astype(np.int64).tolist()))
+                       .encode() + b"\n")
+
+    def close(self):
+        super().close()
+        self._cf.close()
+
+
+def kmer_counts_sidecar(path: str) -> Optional[str]:
+    """Path of the ``.kmer_counts.gz`` sidecar of a FASTA file, if any."""
+    base = path
+    for suf in (".gz", ".fasta", ".fa"):
+        if base.endswith(suf):
+            base = base[:-len(suf)]
+    side = base + ".kmer_counts.gz"
+    return side if os.path.exists(side) else None
+
+
+def iter_weighted_records(path: str) -> Iterator[Tuple[SeqRecord, np.ndarray]]:
+    """(record, per-k-mer uint32 counts) pairs from a FASTA file and its
+    sidecar; numpy parses each count line (the same values, and the same
+    errors on out-of-range ones, as converting each token by ``int``)."""
+    side = kmer_counts_sidecar(path)
+    if side is None:
+        raise FileNotFoundError(f"no .kmer_counts.gz sidecar for {path}")
+    with gzip.open(side, "rb") as cf:
+        for rec, line in zip(parse_records(path), cf):
+            yield rec, np.array(line.split(), dtype=np.uint32)

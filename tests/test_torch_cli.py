@@ -3,7 +3,10 @@
 build (from FASTA in modes basic, canonical and primary, and from a KMC
 database), annotate, query (also with --align), align and stats must
 print byte-identical stdout (the port with ``--device cpu``), and a
-``.dbg.npz`` written by either package must load in the other.
+``.dbg.npz`` written by either package must load in the other. On
+primary graphs align and query --align print alike for reads with a
+full k-mer seed, and both packages fail on a read that needs suffix
+seeds (a fault of the reference, matched).
 """
 
 import numpy as np
@@ -180,16 +183,78 @@ def test_kmc_build_stats_identical(fasta, kmc_db, capsys, mode, extra):
                            str(fasta / "q.fa"))
 
 
-def test_primary_align_unported(fasta, capsys):
-    g = str(fasta / "palign")
-    tport(capsys, ["build", "-k", "11", "--mode", "primary", "-o", g,
-                   str(fasta / "in.fa")])
-    tport(capsys, ["annotate", "-i", g, "--anno-header", str(fasta / "in.fa")])
-    for argv in (["align", "-i", g, str(fasta / "q.fa")],
-                 ["query", "--align", "-i", g, "-a",
-                  g + ".column.annodbg.npz", str(fasta / "q.fa")]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            tport(capsys, argv)
+@pytest.fixture(scope="module")
+def primary_align(fasta, tmp_path_factory):
+    """A k = 15 primary graph of in.fa and its --anno-header annotation,
+    built by each package, and reads that all hold a full k-mer seed:
+    substrings of the records and their reverse complements."""
+    tmp = tmp_path_factory.mktemp("palign")
+    inp = str(fasta / "in.fa")
+    j, t = str(tmp / "j"), str(tmp / "t")
+    for main, g, dev in ((jmain, j, []), (tmain, t, ["--device", "cpu"])):
+        main(["build", "-k", "15", "--mode", "primary", "-o", g, inp] + dev)
+        main(["annotate", "-i", g, "--anno-header", inp] + dev)
+    rng = np.random.default_rng(23)
+    recs = [line for line in (fasta / "in.fa").read_bytes().split(b"\n")
+            if line and not line.startswith(b">") and b"N" not in line]
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    with open(tmp / "reads.fa", "wb") as f:
+        for i, s in enumerate(recs):
+            a = int(rng.integers(0, len(s) - 15))
+            r = s[a:a + int(rng.integers(15, 90))]
+            f.write(b">fwd%d\n%s\n>rc%d\n%s\n"
+                    % (i, r, i, r.translate(comp)[::-1]))
+    with open(tmp / "unseeded.fa", "wb") as f:
+        f.write(b">ok\n" + recs[0][:40] + b"\n>random\n"
+                + random_dna(rng, 60) + b"\n")
+    return j, t, str(tmp / "reads.fa"), str(tmp / "unseeded.fa")
+
+
+@pytest.mark.parametrize("argv", [
+    ["align"],
+    ["align", "--json"],
+    ["align", "--align-both-strands", "--num-alternative-paths", "2"],
+    ["align", "--map", "--count-kmers"],
+    ["query", "--align"],
+    ["query", "--batch-align", "--count-labels", "--discovery-fraction",
+     "0.5"],
+], ids=["tsv", "json", "both-strands", "map", "query-align",
+        "query-batch-align"])
+def test_primary_align_identical(primary_align, capsys, argv):
+    """align and query --align on a primary graph: every read aligns
+    (forward or reverse complement) and prints as the JAX package's."""
+    j, t, reads, _ = primary_align
+
+    def cmd(g):
+        anno = ["-a", g + ".column.annodbg.npz"] if argv[0] == "query" else []
+        return [argv[0], "-i", g] + anno + argv[1:] + [reads]
+
+    want = run(capsys, jmain, cmd(j))
+    assert want
+    assert tport(capsys, cmd(t)) == want
+    if argv == ["align"]:
+        rows = [line.split("\t") for line in want.splitlines()]
+        assert all(r[2] == "+" and r[3] == r[1] and r[6] == f"{len(r[1])}="
+                   for r in rows)
+
+
+@pytest.mark.parametrize("what", ["align", "query --align"])
+def test_primary_suffix_seeds_exit_nonzero(primary_align, capsys, what):
+    """A read without a full k-mer seed needs suffix seeds, which the
+    reference aligner cannot search on a primary graph: both packages
+    exit non-zero, the port naming the reference's fault."""
+    j, t, _, unseeded = primary_align
+    argv = what.split()
+    for main, g in ((jmain, j), (tmain, t)):
+        anno = ["-a", g + ".column.annodbg.npz"] if argv[0] == "query" else []
+        full = argv[:1] + ["-i", g] + anno + argv[1:] + [unseeded]
+        if main is jmain:
+            with pytest.raises(AttributeError, match="boss"):
+                run(capsys, main, full)
+        else:
+            with pytest.raises(SystemExit) as e:
+                tport(capsys, full)
+            assert "metagraph_tpu/align/aligner.py:337" in str(e.value.code)
 
 
 @pytest.fixture(scope="module")

@@ -429,3 +429,109 @@ def test_kmc_build_cuda_equals_cpu(dev, mode):
         bosses.append(build_boss_from_kmers(lanes, cnts, n, k, mode=mode,
                                             bits_per_count=8))
     _same_boss(*bosses)
+
+
+@pytest.mark.parametrize("mode", ["basic", "primary"])
+def test_boss_navigation_cuda_equals_cpu(dev, mode):
+    """The BOSS navigation of stats --validate (rank / select over W and
+    last, fwd, bwd, the dummy counts) on every row: card equals
+    CPU, and the validation passes on the card."""
+    from metagraph_tpu_torch.cli.main import validate_graph
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    codes = np.random.default_rng(3).integers(1, 5, 1 << 14).astype(np.uint8)
+    got, want = (build_boss_from_codes(codes, 15, mode=mode, device=d)
+                 for d in (dev, "cpu"))
+    m, sigma = want.num_edges, 2 * want.alph_size
+    rows = torch.arange(0, m + 1)
+    i = rows.repeat(sigma)
+    c = torch.arange(sigma).repeat_interleave(m + 1)
+    r = torch.arange(1, int(want.num_nodes()) + 1)
+    for name, args in (("get_W", (rows,)), ("rank_last", (rows,)),
+                       ("select_last", (r,)),
+                       ("get_node_last_value", (rows,)),
+                       ("rank_W", (i, c)), ("bwd", (rows[1:],))):
+        assert torch.equal(
+            getattr(got, name)(*(a.to(dev) for a in args)).cpu(),
+            getattr(want, name)(*args)), name
+    # every occurrence of every symbol in W[1..m]
+    totals = want.rank_W(torch.full((sigma,), m), torch.arange(sigma)).long()
+    cs = torch.arange(sigma).repeat_interleave(totals)
+    rs = torch.cat([torch.arange(1, int(t) + 1) for t in totals])
+    assert torch.equal(got.select_W(rs.to(dev), cs.to(dev)).cpu(),
+                       want.select_W(rs, cs))
+    W = want.W[1:].long()
+    real = (W % want.alph_size) != 0
+    fi, fc = rows[1:][real], (W % want.alph_size)[real]
+    assert torch.equal(got.fwd(fi.to(dev), fc.to(dev)).cpu(),
+                       want.fwd(fi, fc))
+    assert [int(x) for x in got.num_dummy_edges()] == \
+        [int(x) for x in want.num_dummy_edges()]
+    assert validate_graph(DbgSuccinct.from_boss(got, mode=mode)) == []
+
+
+def test_query_modes_cuda_equal_cpu(dev):
+    """--query-counts, --count-quantiles and --print-signature on a count
+    annotation: the card's results equal the CPU's."""
+    from metagraph_tpu_torch.engine.annotated_dbg import (
+        AnnotatedDbg, BatchQuery, annotate_sequences)
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    rng = np.random.default_rng(9)
+    codes = rng.integers(1, 5, 1 << 14).astype(np.uint8)
+    letters = np.frombuffer(b"$ACGT", np.uint8)
+    recs = [letters[codes[i:i + 512]].tobytes() for i in range(0, 1 << 14,
+                                                               512)]
+    reads = [r[a:a + 80] for r in recs for a in (0, 100, 300)]
+    reads += [letters[rng.integers(1, 5, 80)].tobytes(), b"ACG"]
+    out = []
+    for d in (dev, "cpu"):
+        g = DbgSuccinct.from_boss(build_boss_from_codes(codes, 21, device=d))
+        ann = annotate_sequences(g, [(s, [f"L{i % 5}", f"R{i}"]) for i, s in
+                                     enumerate(recs + recs[:4])],
+                                 with_counts=True).finalize()
+        bq = BatchQuery(AnnotatedDbg(graph=g, annotation=ann))
+        out.append((bq.get_top_labels_batch(reads, 3, 0.5,
+                                            with_kmer_counts=True),
+                    bq.get_label_count_quantiles_batch(reads, 2 ** 62, 0.2,
+                                                       (0, 0.5, 1)),
+                    [[(lab, m.tolist()) for lab, m in res] for res in
+                     bq.get_top_label_signatures_batch(reads, 2, 0.0)]))
+    assert out[0] == out[1]
+
+
+def test_primary_aligner_cuda_equals_cpu(dev):
+    """Alignment on a primary graph (CanonicalDbg) on the card equals the
+    CPU run field for field; a read that needs suffix seeds raises on
+    the card as on the CPU."""
+    from metagraph_tpu_torch.align.aligner import (Aligner,
+                                                   SuffixSeedsOnPrimaryGraph)
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.canonical import CanonicalDbg
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    rng = np.random.default_rng(12)
+    codes = rng.integers(1, 5, 6000).astype(np.uint8)
+    ref = np.frombuffer(b"$ACGT", np.uint8)[codes].tobytes()
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    reads = []
+    for i in range(64):
+        p = int(rng.integers(0, len(ref) - 100))
+        r = bytearray(ref[p:p + 100])
+        r[int(rng.integers(10, 90))] = ord("A")
+        reads.append(bytes(r) if i % 2 else bytes(r).translate(comp)[::-1])
+    aligners = [Aligner(CanonicalDbg(base=DbgSuccinct.from_boss(
+        build_boss_from_codes(codes, 21, mode="primary", device=d),
+        mode="primary"))) for d in (dev, "cpu")]
+    for with_cigar in (True, False):
+        got, want = (a.align_batch(reads, with_cigar=with_cigar)
+                     for a in aligners)
+        for gs, ws in zip(got, want):
+            assert len(gs) == len(ws) == 1
+            for a, b in zip(gs, ws):
+                assert (a.score, a.cigar, a.query_begin, a.query_end,
+                        a.sequence, a.orientation) == \
+                    (b.score, b.cigar, b.query_begin, b.query_end,
+                     b.sequence, b.orientation)
+                assert np.array_equal(a.nodes, b.nodes)
+    with pytest.raises(SuffixSeedsOnPrimaryGraph):
+        aligners[0].align_batch([b"ACGTACGTAC"])
