@@ -1,17 +1,21 @@
 """Sequence-to-graph alignment: seed and extend.
 
-PyTorch counterpart of ``metagraph_tpu/align/aligner.py``, for DNA
-graphs in the fast state. Seeding maps every read's k-windows with one
-``map_codes_to_nodes`` over the reads joined by separators; reads with no
-full-k seed take suffix seeds (nodes whose k-mer suffix equals the
-longest possible read prefix), found for all such reads at once, one
-batched search per suffix length. Extension is the lockstep beam DP of
-``align/batch_extender.py`` on the graph's device; CIGARs come from the
-batched full DP and traceback, and the score-only path
-(``with_cigar=False``) takes its ends from the ``pallas_dp`` kernel.
+PyTorch counterpart of ``metagraph_tpu/align/aligner.py``, for graphs
+of every alphabet (Protein scores by BLOSUM62) in either state. Seeding
+maps every read's k-windows with one ``map_codes_to_nodes`` over the
+reads joined by separators; reads with no full-k seed take suffix seeds
+(nodes whose k-mer suffix equals the longest possible read prefix),
+found for all such reads at once, one batched search per suffix length.
+Extension is the lockstep beam DP of ``align/batch_extender.py`` on the
+graph's device; CIGARs come from the batched full DP and traceback, and
+the score-only path (``with_cigar=False``) takes its ends from the
+``pallas_dp`` kernel.
 A primary graph aligns through ``CanonicalDbg`` (virtual node ids, so a
 read's reverse complement aligns as a forward read); suffix seeds there
-fail as in the JAX package (``SuffixSeedsOnPrimaryGraph``).
+fail as in the JAX package (``SuffixSeedsOnPrimaryGraph``). A
+small-state graph seeds and walks by rank/select alone: its suffix
+ranges come from ``Boss.suffix_range_ranksel`` and its neighbours are
+looked up as the beam needs them.
 
 The scoring tables, ``affine_semiglobal``, ``_compress_ops_codes`` and
 ``GraphAlignment`` are pure numpy, copied from the JAX package (the port
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..common import packed as pk
+from . import pallas_dp
 
 NEG = -(10 ** 9)
 
@@ -253,19 +258,24 @@ class Aligner:
     ``SuffixSeedsOnPrimaryGraph``."""
 
     def __init__(self, graph, config: Optional[AlignerConfig] = None):
-        # a primary graph comes wrapped in CanonicalDbg: its BOSS table
-        # is the base graph's
-        boss = getattr(graph, "base", graph).boss
-        if boss.edge_lanes is None:
-            raise NotImplementedError(
-                "alignment on small-state graphs is not yet ported")
         self.graph = graph
         self.config = config or AlignerConfig()
         self.sub = self.config.score_matrix(graph.alphabet)
-        # non-DNA scoring (BLOSUM62 / unit): the DP reads the matrix
-        self._sub_tt = (tuple(tuple(int(v) for v in row) for row in self.sub)
-                        if self.config.uses_table_scoring(graph.alphabet)
-                        else None)
+        # non-DNA scoring (BLOSUM62 / unit): the DP reads the matrix; DNA5
+        # and DNACaseSent score by the arithmetic DNA formula over all
+        # their codes, as a table of their size
+        cfg = self.config
+        if cfg.uses_table_scoring(graph.alphabet):
+            tab = self.sub
+        elif graph.alphabet.size != 5:
+            tab = pallas_dp.dna_table(cfg.match_score,
+                                      cfg.mm_transition_penalty,
+                                      cfg.mm_transversion_penalty,
+                                      graph.alphabet.size)
+        else:
+            tab = None
+        self._sub_tt = (None if tab is None else
+                        tuple(tuple(int(v) for v in row) for row in tab))
         self.max_seeds_per_read = self.config.max_seeds_per_read
         # per-code exact-match scores (BLOSUM62's diagonal varies by
         # letter; for DNA this is match_score everywhere)
@@ -282,13 +292,17 @@ class Aligner:
         lazily in node-range chunks: each beam step then costs one gather
         instead of sigma-1 edge searches. On a card it is kept only while
         it fits in a quarter of the free device memory (the scan then
-        looks neighbours up on the fly); the CPU keeps it always."""
+        looks neighbours up on the fly); the CPU keeps it always. A
+        small-state graph keeps none: its table would cost a
+        rank/select navigation (k - 2 bwd steps backward) for every node,
+        far more than the beam's own lookups."""
         if backward not in self._adj:
             g = self.graph
             N = int(g.num_nodes())
             sig1 = g.alphabet.size - 1
             nbytes = (N + 1) * sig1 * 4
-            if self.device.type == "cuda" and \
+            boss = getattr(g, "base", g).boss   # primary: the base graph's
+            if boss.edge_lanes is None or self.device.type == "cuda" and \
                     nbytes > torch.cuda.mem_get_info(self.device)[0] // 4:
                 self._adj[backward] = None
             else:
@@ -347,7 +361,6 @@ class Aligner:
         K = g.k
         B = g.alphabet.bits_per_char
         lanes_all = g.boss.edge_lanes
-        L = lanes_all.shape[0]
         dev = self.device
         min_len = max(self.config.min_seed_length or 1, 1)
         out: List[Tuple[List[int], int]] = [([], 0)] * len(codes_l)
@@ -360,18 +373,13 @@ class Aligner:
                 continue
             pat = torch.from_numpy(np.stack(
                 [codes_l[i][:s] for i in rows]).astype(np.int32)).to(dev)
-            Q = len(rows)
-            lo = pk.zeros(Q, L, dev)
-            # pattern char j sits at field K-s+j (suffix of the node)
-            for j in range(s):
-                lo = pk.set_field(lo, K - s + j, pat[:, j], B)
-            # exclusive upper bound: +1 at the least significant
-            # constrained field (carry-free: field values <= alph size)
-            unit = pk.set_field(pk.zeros(Q, L, dev), K - s,
-                                torch.ones((Q,), dtype=torch.int32,
-                                           device=dev), B)
-            lo_i = pk.searchsorted(lanes_all, lo, side="left") + 1
-            hi_i = pk.searchsorted(lanes_all, lo + unit, side="left")
+            if lanes_all is None:
+                # small state: rank/select range tightening (the
+                # reference's partial index_range)
+                ok, lo_i, hi_i = g.boss.suffix_range_ranksel(pat)
+                hi_i = torch.where(ok, hi_i, lo_i - 1)
+            else:
+                lo_i, hi_i = _suffix_range_lanes(lanes_all, pat, K, B)
             cand = lo_i[:, None] + torch.arange(width, device=dev)
             ok = cand <= torch.minimum(hi_i, lo_i + width - 1)[:, None]
             nodes = torch.where(ok, g.edge_to_node(cand), 0).cpu().numpy()
@@ -645,6 +653,26 @@ class Aligner:
             off += len(p)
             out.append(bytes(letters[c[0]]) + bytes(letters[c[1:, -1]]))
         return out
+
+
+def _suffix_range_lanes(lanes_all: torch.Tensor, pat: torch.Tensor, K: int,
+                        B: int):
+    """The inclusive 1-based rows [lo, hi] of the edges whose source node
+    ends in each (Q, s) pattern: two batched binary searches over the
+    sorted edge k-mers."""
+    Q, s = pat.shape
+    L = lanes_all.shape[0]
+    dev = lanes_all.device
+    lo = pk.zeros(Q, L, dev)
+    # pattern char j sits at field K-s+j (suffix of the node)
+    for j in range(s):
+        lo = pk.set_field(lo, K - s + j, pat[:, j], B)
+    # exclusive upper bound: +1 at the least significant constrained
+    # field (carry-free: field values <= alph size)
+    unit = pk.set_field(pk.zeros(Q, L, dev), K - s,
+                        torch.ones((Q,), dtype=torch.int32, device=dev), B)
+    return (pk.searchsorted(lanes_all, lo, side="left") + 1,
+            pk.searchsorted(lanes_all, lo + unit, side="left"))
 
 
 def _pack_paths(chars: Sequence[np.ndarray]):

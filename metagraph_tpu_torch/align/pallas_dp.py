@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..common import _cuda
+from ..common import device as devmod
 
 NEG = -(10 ** 8)
 # int32 operations per DP cell that the function needs, for the bound
@@ -47,24 +48,30 @@ dp_launches = 0
 dp_long_launches = 0
 
 
-def dna_table(match: int, tpen: int, tvpen: int) -> np.ndarray:
-    """(5, 5) int32 table equal to the arithmetic DNA ``_subst``."""
-    q, c = np.meshgrid(np.arange(5), np.arange(5), indexing="ij")
+def dna_table(match: int, tpen: int, tvpen: int, size: int = 5
+              ) -> np.ndarray:
+    """(size, size) int32 table equal to the arithmetic DNA ``_subst``
+    over codes 0..size-1 (5 for DNA; 6 and 10 for DNA5 and DNACaseSent,
+    whose codes past T score by the same formula, as in the JAX
+    package)."""
+    q, c = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
     diff = np.abs(q - c)
     s = np.where(diff == 0, match, np.where(diff == 2, -tpen, -tvpen))
     return np.where((q == 0) | (c == 0), -tvpen, s).astype(np.int32)
 
 
 def score_table(match: int, tpen: int, tvpen: int, sub_tt=None,
-                device="cpu") -> torch.Tensor:
-    """The substitution table the kernel and its plain version read."""
+                device="cuda") -> torch.Tensor:
+    """The substitution table the kernel and its plain version read, on
+    ``device`` (the card unless the caller names another)."""
     tab = (dna_table(match, tpen, tvpen) if sub_tt is None
            else np.asarray(sub_tt, np.int32))
     if tab.ndim != 2 or tab.shape[0] != tab.shape[1] \
             or not 1 <= tab.shape[0] <= MAX_SIGMA:
         raise ValueError(f"substitution table of shape {tab.shape}: square, "
                          f"1 to {MAX_SIGMA} codes")
-    return torch.from_numpy(np.ascontiguousarray(tab)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(tab)).to(
+        devmod.resolve(device))
 
 
 def dp_cells(qlens: torch.Tensor, rlens: torch.Tensor, LQ: int,

@@ -16,6 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import device as devmod
+
 
 def _expand_intervals(lo: torch.Tensor, hi: torch.Tensor, capacity: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -48,8 +50,10 @@ class RowSparse:
 
     @staticmethod
     def from_coo(rows, cols, num_rows: int, num_cols: int, values=None,
-                 device="cpu") -> "RowSparse":
-        """Sorted by (row, col), duplicates merged (values summed)."""
+                 device="cuda") -> "RowSparse":
+        """Sorted by (row, col), duplicates merged (values summed), on
+        ``device`` (the card unless the caller names another)."""
+        device = devmod.resolve(device)
         rows = torch.as_tensor(np.asarray(rows, np.int32), device=device)
         cols = torch.as_tensor(np.asarray(cols, np.int32), device=device)
         # (row, col) order: stable sort by col, then stable sort by row
@@ -138,7 +142,8 @@ class RowSparse:
         return d
 
     @staticmethod
-    def from_npz_dict(d, prefix: str = "", device="cpu") -> "RowSparse":
+    def from_npz_dict(d, prefix: str = "", device="cuda") -> "RowSparse":
+        device = devmod.resolve(device)
         shape = d[prefix + "shape"]
         values = d[prefix + "values"] if prefix + "values" in d else None
 

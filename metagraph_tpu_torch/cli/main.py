@@ -1,5 +1,6 @@
 """The ``metagraph`` CLI of the port: build, annotate, query, align and
-stats, on basic, canonical and primary DNA graphs.
+stats, on basic, canonical and primary graphs over the DNA, DNA5,
+DNACaseSent and Protein alphabets, in the fast or the small state.
 
 PyTorch counterpart of ``metagraph_tpu/cli/main.py`` for the subset the
 port covers; stdout is byte for byte that of the JAX CLI. Every command
@@ -11,6 +12,8 @@ subcommand or flag exits non-zero with "not yet ported".
     python -m metagraph_tpu_torch.cli.main build -k 31 -o graph a.fa b.fa
     find . -name "*.fa" | python -m metagraph_tpu_torch.cli.main build -k 31
     python -m metagraph_tpu_torch.cli.main build -k 31 --mode primary -o g reads.fa
+    python -m metagraph_tpu_torch.cli.main build -k 31 --alphabet Protein -o g p.fa
+    python -m metagraph_tpu_torch.cli.main build -k 31 --state small -o g reads.fa
     python -m metagraph_tpu_torch.cli.main build -k 31 --min-count 2 -o g db.kmc_pre
     python -m metagraph_tpu_torch.cli.main build -k 31 --count-kmers -o g contigs.fasta.gz
     python -m metagraph_tpu_torch.cli.main annotate -i graph --anno-header reads.fa
@@ -86,9 +89,9 @@ def _load_graph(path, device, wrap_primary: bool = True):
 
 def cmd_build(args):
     from ..graph import io as graph_io
-    from ..graph.boss_construct import build_boss
+    from ..graph.boss_construct import build_boss, check_lanes
     from ..graph.dbg_succinct import DbgSuccinct
-    from ..kmer.alphabets import DNA
+    from ..kmer.alphabets import ALPHABETS
     from ..seqio.fasta import kmer_counts_sidecar, parse_records
 
     if not args.fnames and not sys.stdin.isatty():
@@ -97,11 +100,11 @@ def cmd_build(args):
         args.fnames = [ln.strip() for ln in sys.stdin if ln.strip()]
     if not args.fnames:
         raise SystemExit("build: no input files (arguments or a stdin list)")
-    if args.alphabet != "DNA":
-        raise SystemExit(f"build: --alphabet {args.alphabet} is not yet "
-                         f"ported (DNA only)")
-    if args.state != "fast":
-        raise SystemExit("build: --state small is not yet ported")
+    alphabet = ALPHABETS[args.alphabet]
+    try:
+        check_lanes(args.k, alphabet)
+    except NotImplementedError as e:
+        raise SystemExit(f"build: {e}") from e
     bits_per_count = args.count_width if args.count_kmers else 0
     t0 = time.time()
     if any(f.endswith((".kmc_pre", ".kmc_suf")) for f in args.fnames):
@@ -112,7 +115,7 @@ def cmd_build(args):
         raise SystemExit("build: VCF input is not yet ported")
     elif args.count_kmers and all(kmer_counts_sidecar(f)
                                   for f in args.fnames):
-        boss = _build_weighted_from_sidecars(args, bits_per_count)
+        boss = _build_weighted_from_sidecars(args, alphabet, bits_per_count)
     else:
         seqs = [r.seq for f in args.fnames for r in parse_records(f)]
         if args.fwd_and_reverse:
@@ -121,11 +124,12 @@ def cmd_build(args):
         log(f"Read {len(seqs)} sequences "
             f"({sum(map(len, seqs)) / 1e6:.1f} Mbp)")
         t0 = time.time()
-        boss = build_boss(seqs, args.k, alphabet=DNA, mode=args.mode,
+        boss = build_boss(seqs, args.k, alphabet=alphabet, mode=args.mode,
                           bits_per_count=bits_per_count, device=args.device)
     log(f"Graph construction: {time.time() - t0:.2f} s")
-    graph = DbgSuccinct.from_boss(boss, DNA, args.mode)
-    log(f"Serialized to {graph_io.save_graph(args.outfile_base, graph)}")
+    graph = DbgSuccinct.from_boss(boss, alphabet, args.mode)
+    log(f"Serialized to "
+        f"{graph_io.save_graph(args.outfile_base, graph, args.state)}")
 
 
 def sidecar_kmers(fnames: Sequence[str], k: int, alphabet):
@@ -149,39 +153,41 @@ def sidecar_kmers(fnames: Sequence[str], k: int, alphabet):
     return np.concatenate(chars_parts), np.concatenate(count_parts)
 
 
-def _build_weighted_from_sidecars(args, bits_per_count: int):
+def _build_weighted_from_sidecars(args, alphabet, bits_per_count: int):
     """Contigs with per-k-mer count sidecars: each k-mer contributes its
     count, duplicates summed, weights saturated at ``--count-width``
     bits."""
-    from ..kmer.alphabets import DNA
-    chars, counts = sidecar_kmers(args.fnames, args.k, DNA)
+    chars, counts = sidecar_kmers(args.fnames, args.k, alphabet)
     log(f"Weighted input: {len(chars)} k-mers from count sidecars")
-    return _build_counted(chars, counts, args, bits_per_count)
+    return _build_counted(chars, counts, args, bits_per_count, alphabet)
 
 
 def _build_from_kmc(args, bits_per_count: int):
-    """A KMC database's k-mers, count-filtered, as a graph."""
+    """A KMC database's k-mers, count-filtered, as a graph. They build
+    over DNA whatever ``--alphabet`` names, as in the JAX CLI (the graph
+    is labelled with that alphabet)."""
+    from ..kmer.alphabets import DNA
     from ..seqio.kmc import read_kmers
     chars, counts, hdr = read_kmers(args.fnames[0], min_count=args.min_count,
                                     max_count=args.max_count)
     log(f"KMC database: {len(chars)} k-mers, k={hdr.kmer_length}")
     if args.k != hdr.kmer_length:
         raise SystemExit(f"build: -k {args.k} != KMC k {hdr.kmer_length}")
-    return _build_counted(chars, counts, args, bits_per_count)
+    return _build_counted(chars, counts, args, bits_per_count, DNA)
 
 
-def _build_counted(chars, counts, args, bits_per_count: int):
-    """Counted k-mers ((n, k) codes, (n,) counts) as a graph. Canonical
-    and primary both build the canonical closure, as the JAX CLI does;
-    the graph is then labelled with the requested mode."""
+def _build_counted(chars, counts, args, bits_per_count: int, alphabet):
+    """Counted k-mers ((n, k) codes, (n,) counts) as a graph over
+    ``alphabet``. Canonical and primary both build the canonical
+    closure, as the JAX CLI does; the graph is then labelled with the
+    requested mode."""
     from ..graph.boss_construct import (build_boss_from_kmers,
                                         collect_counted_kmers)
-    from ..kmer.alphabets import DNA
     mode = "basic" if args.mode == "basic" else "canonical"
     lanes, cnts, n = collect_counted_kmers(
-        chars, counts, args.k, DNA, canonical=mode == "canonical",
+        chars, counts, args.k, alphabet, canonical=mode == "canonical",
         device=args.device)
-    return build_boss_from_kmers(lanes, cnts, n, args.k, DNA, mode=mode,
+    return build_boss_from_kmers(lanes, cnts, n, args.k, alphabet, mode=mode,
                                  bits_per_count=bits_per_count)
 
 
@@ -289,14 +295,21 @@ def _print_boss_table(boss, letters: str):
     edge k-mer less its label), W char (minus-flagged ones lower case)
     and last bit."""
     from ..kmer.packing import unpack_to_chars
-    if boss.edge_lanes is None:
-        raise SystemExit("stats --print: small-state graphs are not yet "
-                         "ported")
     W = boss.W.cpu().numpy()
     last = boss.last_rank.bits_host()
     sigma = boss.alph_size
-    chars = unpack_to_chars(boss.edge_lanes, boss.k + 1,
-                            boss.bits_per_char).cpu().numpy()
+    if boss.edge_lanes is not None:
+        chars = unpack_to_chars(boss.edge_lanes, boss.k + 1,
+                                boss.bits_per_char).cpu().numpy()
+    else:
+        # small state: the rank/select bwd-walk decode, in chunks of rows
+        import torch
+        step = 1 << 22
+        chars = np.concatenate([np.zeros((0, boss.k + 1), np.int32)] + [
+            boss.node_chars_ranksel(torch.arange(
+                lo, min(lo + step, boss.num_edges + 1),
+                device=boss.device)).cpu().numpy()
+            for lo in range(1, boss.num_edges + 1, step)])
     nodes = np.frombuffer(letters.encode(), np.uint8)[chars[:, :-1]]
     wchar = ["$"] + [letters[w % sigma].lower() if w >= sigma else letters[w]
                      for w in range(1, 2 * sigma)]

@@ -48,7 +48,7 @@ merge_launches = 0
 sort_launches = 0
 sort_digit_passes = 0
 
-_MAX_LANES = 8
+MAX_LANES = 8
 _MAX_EXTRAS = 2
 
 
@@ -61,9 +61,9 @@ def _check_cuda_args(what: str, lanes: Sequence[torch.Tensor],
     for x in lanes:
         if x.dtype != packed.LANE_DTYPE or x.dim() != 2:
             raise TypeError(f"{what}: lanes must be (L, N) int32")
-        if not 1 <= x.shape[0] <= _MAX_LANES:
+        if not 1 <= x.shape[0] <= MAX_LANES:
             raise ValueError(f"{what}: {x.shape[0]} lanes; the kernel "
-                             f"takes 1 to {_MAX_LANES}")
+                             f"takes 1 to {MAX_LANES}")
         if x.device != dev:
             raise ValueError(f"{what}: operands on different devices")
     for e in extras:

@@ -111,6 +111,19 @@ class BatchQuery:
         windows per read (R,))."""
         g = self.adbg.graph
         k = g.k
+        if (getattr(g, "boss", None) is not None
+                and g.boss.edge_lanes is None):
+            # small state: the incremental walk (O(1) rank/select calls per
+            # window) in place of the flat k-step search per window
+            per = g.map_read_batch(list(seqs))
+            return (np.concatenate([np.where(nodes > 0,
+                                             g.node_to_anno_row(nodes), -1)
+                                    for nodes in per]
+                                   + [np.zeros(0, np.int64)]),
+                    np.concatenate([np.full(len(nodes), r, np.int64)
+                                    for r, nodes in enumerate(per)]
+                                   + [np.zeros(0, np.int64)]),
+                    np.array([len(nodes) for nodes in per], np.int64))
         codes_np = encode_sequences(seqs, g.alphabet)
         if len(codes_np) < k:
             codes_np = np.concatenate(

@@ -11,8 +11,13 @@ arrays are the reference's
 held inside blocked rank structures (``common/ranksel.py``), plus the
 sorted packed edge k-mers (``edge_lanes``) as a search accelerator:
 ``map_to_edges`` is one batched binary search over them, narrowed by a
-table of bucket starts over the top 16 bits (``lut``). Indexing is
-1-based over edges; row 0 is a sentinel and index 0 means "absent".
+table of bucket starts over the top 16 bits (``lut``). A small-state
+table (no ``edge_lanes``) searches by rank/select alone: the
+reference's range tightening, one fused ``rank_W`` and one fused
+``select_last`` call per character (``index_edge_ranksel``,
+``suffix_range_ranksel``), and decodes rows by the backward walk
+(``node_chars_ranksel``). Indexing is 1-based over edges; row 0 is a
+sentinel and index 0 means "absent".
 """
 
 from __future__ import annotations
@@ -135,6 +140,12 @@ class Boss:
     def select_last(self, r) -> torch.Tensor:
         return self.last_rank.select1(self._t(r))
 
+    def pred_last(self, i) -> torch.Tensor:
+        """Largest j <= i with last[j] set, else 0."""
+        i = self._t(i)
+        p = self.last_rank.prev1(torch.clamp(i, min=0))
+        return torch.where((i <= 0) | (p >= self.last_rank.n), 0, p)
+
     def rank_W(self, i, c) -> torch.Tensor:
         """#occurrences of c in W[1..i] (W[0] = 0 excluded)."""
         i, c = self._t(i), self._t(c)
@@ -170,13 +181,81 @@ class Boss:
 
     # -- searching ---------------------------------------------------------
 
+    def _first_range(self, u1: torch.Tensor):
+        """Inclusive edge-row range [rl, ru] of the nodes ending in char
+        ``u1`` (by F), and whether it is non-empty."""
+        m = self.num_edges
+        alph = self.alph_size
+        u1 = torch.clamp(u1, 0, alph - 1).long()
+        rl = torch.clamp(self.F[u1] + 1, max=m + 1)
+        ru = torch.where(u1 + 1 < alph,
+                         self.F[torch.clamp(u1 + 1, max=alph - 1)], m)
+        return rl, ru, rl <= ru
+
+    def _tighten(self, ok, rl, ru, c):
+        """One tighten_range step on char ``c``: the rows of the nodes
+        reached from [rl, ru] by an edge labelled c. The two ends ride
+        one fused rank_W and one fused select_last call."""
+        Q = rl.shape[0]
+        c = torch.clamp(c, 0, self.alph_size - 1)
+        cc = torch.cat([c, c])
+        rk = self.rank_W(torch.cat([rl - 1, ru]), cc)
+        rk_rl = rk[:Q] + 1
+        rk_ru = rk[Q:]
+        nf = self.NF[c.long()]
+        sl = self.select_last(torch.clamp(torch.cat(
+            [nf + rk_rl - 1, nf + rk_ru]), min=1))
+        ok = ok & (rk_rl <= rk_ru)
+        return (ok, torch.where(ok, sl[:Q] + 1, rl),
+                torch.where(ok, sl[Q:], ru))
+
+    def index_edge_ranksel(self, chars) -> torch.Tensor:
+        """Rank/select-only edge lookup (no ``edge_lanes``): the
+        reference's index + pick_edge search. ``chars``: (Q, K) edge
+        k-mers in sequence order (node chars u_1..u_k, then the label).
+        Per query an F range on u_1, k - 1 tighten steps, then pick_edge
+        over the terminal node's rows. Returns 1-based rows, 0 = absent."""
+        chars = self._t(chars).to(torch.int64)
+        Q = chars.shape[0]
+        k = self.k
+        alph = self.alph_size
+        ok = torch.all((chars >= 1) & (chars < alph), dim=1)
+        rl, ru, nonempty = self._first_range(chars[:, 0])
+        ok = ok & nonempty
+        for i in range(1, k):
+            ok, rl, ru = self._tighten(ok, rl, ru, chars[:, i])
+        # pick_edge(ru, label): the node's rows holding W == c or c + alph
+        c = torch.clamp(chars[:, k], 0, alph - 1)
+        lo = self.pred_last(ru - 1) + 1
+        cc = torch.cat([c, c + alph])
+        rr = self.rank_W(torch.cat([ru, ru]), cc)
+        pos = self.select_W(torch.clamp(rr, min=1), cc)
+        p1 = torch.where((rr[:Q] >= 1) & (pos[:Q] >= lo), pos[:Q], 0)
+        p2 = torch.where((rr[Q:] >= 1) & (pos[Q:] >= lo), pos[Q:], 0)
+        return torch.where(ok, torch.where(p1 > 0, p1, p2), 0)
+
+    def suffix_range_ranksel(self, patterns):
+        """(ok, rl, ru): the inclusive 1-based row range of the edges
+        whose source node ends in each pattern of (Q, s) chars, by
+        rank/select alone (the reference's partial index_range; the
+        JAX package searches one pattern a call)."""
+        pat = self._t(patterns).to(torch.int64)
+        alph = self.alph_size
+        ok = torch.all((pat >= 1) & (pat < alph), dim=1)
+        rl, ru, nonempty = self._first_range(pat[:, 0])
+        ok = ok & nonempty
+        for i in range(1, pat.shape[1]):
+            ok, rl, ru = self._tighten(ok, rl, ru, pat[:, i])
+        return ok, rl, ru
+
     def map_to_edges(self, query_lanes: torch.Tensor) -> torch.Tensor:
         """Map packed edge k-mers (BOSS layout) to 1-based edge rows;
         0 = not present. One batched binary search over ``edge_lanes``,
-        narrowed to each query's top-16-bit bucket."""
+        narrowed to each query's top-16-bit bucket; without them (small
+        state) the rank/select search."""
         if self.edge_lanes is None:
-            raise NotImplementedError(
-                "small-state graphs (no edge_lanes) are not yet ported")
+            return self.index_edge_ranksel(packing.unpack_to_chars(
+                query_lanes, self.K, self.bits_per_char))
         n = self.edge_lanes.shape[1]
         if self.lut is not None:
             t = packed.srl(query_lanes[0], 16).to(torch.int64)
@@ -189,6 +268,20 @@ class Boss:
         pos_c = torch.clamp(pos, max=n - 1)
         hit = packed.eq(self.edge_lanes[:, pos_c], query_lanes)
         return torch.where(hit, pos_c + 1, 0)
+
+    def node_chars_ranksel(self, rows) -> torch.Tensor:
+        """(Q, K) int32 char codes of the edge k-mers at ``rows``, by
+        rank/select alone (the reference's get_node_seq bwd walk): K - 1
+        backward steps recover the node chars, W the label."""
+        x = self._t(rows).to(torch.int64)
+        K = self.K
+        out = torch.zeros((x.shape[0], K), dtype=torch.int32,
+                          device=self.device)
+        out[:, K - 1] = self.get_W(x) % self.alph_size
+        for i in range(K - 1):
+            out[:, K - 2 - i] = self.get_node_last_value(x).to(torch.int32)
+            x = self.bwd(x)
+        return out
 
     # -- statistics --------------------------------------------------------
 

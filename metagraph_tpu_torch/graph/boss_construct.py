@@ -1,17 +1,20 @@
 """BOSS construction: sorted packed k-mer sets on the device.
 
 PyTorch counterpart of ``metagraph_tpu/graph/boss_construct.py``, for
-the slice the single-shard DNA build runs (modes ``basic``,
+the single-shard build over every alphabet (modes ``basic``,
 ``canonical`` and ``primary``, with or without k-mer counts, from
-sequences or from pre-counted k-mers):
+sequences or from pre-counted k-mers; at most 8 lanes a k-mer):
 
-  collect     upload the uint8 codes; pack every window in the 2-bit
-              domain, fold to canonical form, sort, dedupe and count
+  collect     upload the uint8 codes; pack every window (DNA in the
+              2-bit domain, the other alphabets at their own B bits,
+              extracted and compacted by the partition kernel), fold to
+              canonical form, sort, dedupe and count
               (``_sort_unique_ones_body``: sort and partition kernels);
               for basic and canonical builds, gather the dummy-edge
               candidates at the per-run boundary windows, whose positions
               come from the invalid codes on the host. Pre-counted k-mers
-              (KMC) take ``collect_counted_kmers`` / ``_sort_unique_stage``
+              (KMC, count sidecars) take ``collect_counted_kmers`` /
+              ``_sort_unique_stage``
   rc closure  canonical mode: append the reverse complements
               (``_add_rc_stage``: partition, sort and merge kernels)
   dummies     with boundary candidates, probe them against the sorted
@@ -46,7 +49,8 @@ from ..common import merge as pmerge
 from ..common import packed
 from ..kmer import packing
 from ..kmer.alphabets import Alphabet, DNA, INVALID_CODE
-from ..kmer.extractor import encode_sequences, window_validity
+from ..kmer.extractor import (encode_sequences, extract_packed_kmers,
+                              window_validity)
 from .boss import Boss, _build_lut
 
 MODE_BASIC = "basic"
@@ -82,11 +86,17 @@ def host_boundary_windows(inval_sorted: np.ndarray, n: int, K: int
     return (b[ok] - K).astype(np.int64), a[ok].astype(np.int64)
 
 
+def _two_bit(alphabet: Alphabet) -> bool:
+    """DNA (four letters and the sentinel, 4-bit fields) collects in the
+    2-bit domain; every other alphabet at its own B bits."""
+    return alphabet.bits_per_char == 4 and alphabet.size <= 5
+
+
 def _collect(codes: torch.Tensor, K: int, B: int, canonical: bool,
              complement, bound_pos=None):
-    """Windows -> sorted unique k-mers + counts, plus (when ``bound_pos``
-    = (end_pos, start_pos) is given) the boundary dummy candidates
-    gathered at those window positions.
+    """DNA: windows -> sorted unique k-mers + counts, plus (when
+    ``bound_pos`` = (end_pos, start_pos) is given) the boundary dummy
+    candidates gathered at those window positions.
 
     The big sort runs in the 2-BIT domain (chars stored as c-1): real
     k-mers never hold the sentinel, c -> c-1 is monotone, and for
@@ -125,6 +135,36 @@ def _collect(codes: torch.Tensor, K: int, B: int, canonical: bool,
     ulanes = packed.expand2to4(ulanes2[low:], K)
     # expansion garbles the PAD tail: restore it positionally
     return _masked(ulanes, ucount), ucounts, ucount, bounds
+
+
+def _collect_bbit(codes: torch.Tensor, K: int, B: int, canonical: bool,
+                  complement, bound_pos=None):
+    """Every alphabet but DNA, at its own B bits per char: extract and
+    compact the valid windows (partition kernel), fold each to canonical
+    form, sort-unique; the boundary candidates are packed from the codes
+    of the windows at ``bound_pos``. Returns what ``_collect`` does.
+
+    No key can equal PAD: codes stay below 2^B - 1 (at most 26 in 8
+    bits, 9 in 4), so no field of a real k-mer is all ones."""
+    lanes, count = extract_packed_kmers(codes, K, B)
+    if canonical:
+        rc = packing.reverse_complement(lanes, K, B, complement)
+        take_rc = packed.lt(rc, lanes) & packed.valid_mask(
+            lanes.shape[1], count)
+        lanes = torch.where(take_rc[None, :], rc, lanes)
+    ulanes, ucounts, ucount = _sort_unique_ones_body(lanes, count)
+    bounds = None
+    if bound_pos is not None:
+        offs = torch.arange(K, device=codes.device)
+
+        def windows(pos):
+            return packing.pack_from_chars(codes[pos[:, None] + offs], K, B)
+
+        end_pos, start_pos = bound_pos
+        bounds = (packing.node_key(packing.to_next(windows(end_pos), K, B, 0),
+                                   B),
+                  packing.node_key(windows(start_pos), B))
+    return ulanes, ucounts, ucount, bounds
 
 
 def _sort_unique_ones_body(lanes: torch.Tensor, count: torch.Tensor):
@@ -172,10 +212,16 @@ def _sort_unique_stage(lanes: torch.Tensor, counts: torch.Tensor, count):
     return ulanes, ucounts, ucount
 
 
-def _check_dna(alphabet: Alphabet):
-    if alphabet.bits_per_char != 4 or alphabet.size > 5:
+def check_lanes(K: int, alphabet: Alphabet):
+    """The kernels take up to 8 lanes of 32 bits: K chars of B bits must
+    fit in 256 (K <= 64 for the 4-bit alphabets, K <= 32 for Protein)."""
+    L = packed.num_lanes(K, alphabet.bits_per_char)
+    if L > pmerge.MAX_LANES:
         raise NotImplementedError(
-            f"alphabet {alphabet.name} is not yet ported (DNA only)")
+            f"k = {K} over {alphabet.name} needs {L} lanes of 32 bits; "
+            f"builds past the kernels' {pmerge.MAX_LANES}-lane limit "
+            f"(k <= {pmerge.MAX_LANES * 32 // alphabet.bits_per_char}) "
+            f"are not yet ported")
 
 
 def collect_kmers(seqs: Sequence[bytes | str], K: int,
@@ -187,7 +233,7 @@ def collect_kmers(seqs: Sequence[bytes | str], K: int,
     ``bounds`` the (sink, source) dummy-candidate node keys, or None
     without ``with_bounds``."""
     dev = devmod.resolve(device)
-    _check_dna(alphabet)
+    check_lanes(K, alphabet)
     codes_np = (encode_sequences(seqs, alphabet) if extra_codes is None
                 else np.asarray(extra_codes, np.uint8))
     if codes_np.shape[0] < K:
@@ -196,11 +242,13 @@ def collect_kmers(seqs: Sequence[bytes | str], K: int,
                                np.uint8)])
     bound_pos = None
     if with_bounds:
-        inval = np.flatnonzero((codes_np - np.uint8(1)) > 3)  # 0, >4 wrap
+        # the codes window_validity rejects: INVALID and the sentinel
+        inval = np.flatnonzero((codes_np == INVALID_CODE) | (codes_np == 0))
         bound_pos = tuple(torch.from_numpy(p).to(dev) for p in
                           host_boundary_windows(inval, codes_np.shape[0], K))
     codes = torch.from_numpy(codes_np).to(dev)
-    ulanes, ucounts, ucount, bounds = _collect(
+    collect = _collect if _two_bit(alphabet) else _collect_bbit
+    ulanes, ucounts, ucount, bounds = collect(
         codes, K, alphabet.bits_per_char, canonical, alphabet.complement,
         bound_pos)
     n_u = int(ucount)                       # the collect's one host sync
@@ -215,7 +263,7 @@ def collect_counted_kmers(chars: np.ndarray, counts: np.ndarray, K: int,
     char codes and (n,) counts, clamped to 2^31 - 1. Returns (lanes
     (L, max(n_u, 1)), counts, n_u)."""
     dev = devmod.resolve(device)
-    _check_dna(alphabet)
+    check_lanes(K, alphabet)
     B = alphabet.bits_per_char
     n = chars.shape[0]
     lanes = packing.pack_from_chars(

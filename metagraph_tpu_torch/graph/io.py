@@ -21,9 +21,10 @@ from .dbg_succinct import DbgSuccinct
 GRAPH_EXT = ".dbg.npz"
 
 
-def graph_to_numpy(graph: DbgSuccinct) -> dict:
+def graph_to_numpy(graph: DbgSuccinct, with_lanes: bool = True) -> dict:
     """The graph's arrays on the host (``dbg_from_numpy`` inverts it):
-    ``last`` and ``valid`` as full-length bool, ``edge_lanes`` uint32."""
+    ``last`` and ``valid`` as full-length bool, ``edge_lanes`` uint32
+    (left out without ``with_lanes``)."""
     boss = graph.boss
     d = dict(
         k=np.array(boss.k),
@@ -34,18 +35,22 @@ def graph_to_numpy(graph: DbgSuccinct) -> dict:
         F=boss.F.cpu().numpy(),
         valid=graph.valid_rank.bits_host(),
     )
-    if boss.edge_lanes is not None:
+    if with_lanes and boss.edge_lanes is not None:
         d["edge_lanes"] = packed.lanes_to_numpy(boss.edge_lanes)
     if boss.weights is not None:
         d["weights"] = boss.weights.cpu().numpy()
     return d
 
 
-def save_graph(path: str, graph: DbgSuccinct) -> str:
-    """Write the fast-state graph (with its edge k-mers)."""
+def save_graph(path: str, graph: DbgSuccinct, state: str = "fast") -> str:
+    """Write the graph. State ``fast`` keeps the edge k-mers (the search
+    accelerator); ``small`` drops them, leaving the rank/select
+    structures alone (the reference's BOSS states)."""
+    if state not in ("fast", "small"):
+        raise ValueError(f"state {state!r}: fast or small")
     if not path.endswith(GRAPH_EXT):
         path = path + GRAPH_EXT
-    d = graph_to_numpy(graph)
+    d = graph_to_numpy(graph, with_lanes=state == "fast")
     d["last_len"] = np.array(d["last"].shape[0])
     d["last"] = np.packbits(d["last"])
     d["valid"] = np.packbits(d["valid"])

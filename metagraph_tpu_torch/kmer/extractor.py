@@ -4,6 +4,7 @@ PyTorch counterpart of ``metagraph_tpu/kmer/extractor.py``. Sequences
 are concatenated with a single INVALID separator byte, so no window
 straddles two sequences; a window is a real k-mer iff it holds no
 invalid or sentinel code, which one prefix sum decides for all windows.
+``extract_packed_kmers`` packs the valid windows and compacts them.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..common import merge as pmerge
+from . import packing
 from .alphabets import Alphabet, INVALID_CODE
 
 
@@ -39,3 +42,16 @@ def window_validity(codes: torch.Tensor, K: int) -> torch.Tensor:
                                     device=codes.device),
                         torch.cumsum(bad, 0, dtype=torch.int32)])
     return (prefix[K:] - prefix[:-K]) == 0
+
+
+def extract_packed_kmers(codes: torch.Tensor, K: int, B: int):
+    """All valid K-windows of ``codes``, packed in BOSS field layout at
+    ``B`` bits per char and compacted to the front (partition kernel).
+    Returns (lanes (L, N-K+1) with a PAD tail, count as a 0-d int32
+    tensor)."""
+    num_windows = codes.shape[0] - K + 1
+    assert num_windows >= 0, "input shorter than k"
+    ok = window_validity(codes, K)
+    lanes = packing.pack_windows(codes, K, B)
+    lanes, count, _ = pmerge.partition_compact(lanes, ok, num_windows)
+    return lanes, count

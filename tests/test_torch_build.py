@@ -127,11 +127,14 @@ def test_count_saturation():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: tbc.collect_counted_kmers(np.ones((3, 9), np.uint8),
-                                      np.ones(3), 9, alphabet=TDNA5,
+    # past the kernels' 8 lanes: 65 chars of 4 bits (DNA5 itself is
+    # ported; tests/test_torch_alphabets.py holds it against the JAX
+    # package)
+    lambda: tbc.collect_counted_kmers(np.ones((3, 65), np.uint8),
+                                      np.ones(3), 65, alphabet=TDNA5,
                                       device="cpu"),
     lambda: tbc.build_boss([b"ACGT" * 9], 9, suffix=(1,), device="cpu"),
-    lambda: tbc.build_boss([b"ACGT" * 9], 9, alphabet=TDNA5, device="cpu"),
+    lambda: tbc.build_boss([b"ACGT" * 20], 65, alphabet=TDNA5, device="cpu"),
 ])
 def test_unported_options_raise(call):
     with pytest.raises(NotImplementedError, match="not yet ported"):

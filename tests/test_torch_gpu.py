@@ -535,3 +535,140 @@ def test_primary_aligner_cuda_equals_cpu(dev):
                 assert np.array_equal(a.nodes, b.nodes)
     with pytest.raises(SuffixSeedsOnPrimaryGraph):
         aligners[0].align_batch([b"ACGTACGTAC"])
+
+
+WIDE_CASES = [(L, E) for L in (5, 6, 7, 8) for E in (0, 1, 2)]
+
+
+@pytest.mark.parametrize("L,E", WIDE_CASES)
+def test_wide_lane_kernels_match_plain(dev, L, E):
+    """The three build kernels at 5 to 8 lanes (DNA5 / DNACaseSent past
+    k = 32, Protein past k = 16): sort_packed (the 12-key tile, a ragged
+    last tile, PAD mixed in, Protein's 8-bit fields), partition_compact
+    and merge_sorted with 0-2 payloads."""
+    rng = np.random.default_rng(100 * L + E)
+    tile = merge._cuda.lib().mg_sort_tile(L)
+    n = 3 * tile + 101
+    x = rng.integers(0, 27, (L, n, 4), dtype=np.uint32)   # Protein fields
+    lanes = (x[..., 0] << 24) | (x[..., 1] << 16) | (x[..., 2] << 8) | x[..., 3]
+    lanes[:, rng.random(n) < 0.05] = 0xFFFFFFFF
+    xs = packed.lanes_from_numpy(lanes.astype(np.uint32), dev)
+    extras = [torch.from_numpy(rng.integers(-2**31, 2**31, n)
+                               .astype(np.int32)).to(dev) for _ in range(E)]
+    p0 = merge.sort_digit_passes
+    got, ge = merge.sort_packed(xs, *extras)
+    want, we = merge.sort_packed_plain(xs, *extras)
+    _same([got, *ge], [want, *we])
+    # each 8-bit digit is one field of 27 values (its top three bits
+    # always zero): no digit is constant, so all 4 L run
+    assert merge.sort_digit_passes - p0 == 4 * L
+    keep = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    g = merge.partition_compact(xs, keep, n, *extras, extra_fill=-1)
+    w = merge.partition_compact_plain(xs, keep, n, *extras, extra_fill=-1)
+    assert int(g[1]) == int(w[1])
+    _same([g[0], *g[2]], [w[0], *w[2]])
+    b = _sorted_lanes(rng, 900, 1000, L, dev=dev)
+    eb = [torch.arange(1000, dtype=torch.int32, device=dev)
+          for _ in range(E)]
+    gm = merge.merge_sorted(want, b, we, eb)
+    wm = merge.merge_sorted_plain(want, b, we, eb)
+    _same([gm[0], *gm[1]], [wm[0], *wm[1]])
+
+
+@pytest.mark.parametrize("sigma", [27, 32])
+@pytest.mark.parametrize("LQ", [100, 300])
+def test_align_dp_kernel_wide_tables(dev, sigma, LQ):
+    """pallas_dp with the Protein BLOSUM62 table (sigma = 27) and a full
+    32 x 32 table, on the wave route (LQ + 1 <= 256) and the long one."""
+    from metagraph_tpu_torch.align.aligner import blosum62_matrix
+    from metagraph_tpu_torch.kmer.alphabets import PROTEIN
+    rng = np.random.default_rng(sigma + LQ)
+    tab = (blosum62_matrix(PROTEIN) if sigma == 27
+           else rng.integers(-6, 7, (32, 32)).astype(np.int32))
+    R = 200
+    q = rng.integers(0, sigma, (R, LQ)).astype(np.int32)
+    r = rng.integers(0, sigma, (R, LQ + 20)).astype(np.int32)
+    r[::2, :LQ] = q[::2]
+    ql = rng.integers(0, LQ + 1, R).astype(np.int32)
+    rl = rng.integers(0, LQ + 21, R).astype(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (q, r, ql, rl)]
+    long0 = pallas_dp.dp_long_launches
+    got = pallas_dp.batch_align_ends(*args, sub_tt=tab, open_p=11, ext_p=1)
+    want = pallas_dp.align_plain(*args, torch.from_numpy(tab).to(dev), 11, 1,
+                                 True)
+    _same([got], [want])
+    assert (pallas_dp.dp_long_launches > long0) == (
+        LQ + 1 > pallas_dp.WAVE_MAX_ROWS)
+
+
+def _alphabet_codes(rng, name, n):
+    """n codes of an alphabet: Protein's twenty amino acids, DNA5 with N
+    one code in a hundred, DNACaseSent in runs of upper and lower case;
+    a read break every 1000 codes."""
+    from metagraph_tpu_torch.kmer.alphabets import ALPHABETS
+    alph = ALPHABETS[name]
+    if name == "Protein":
+        letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+        seq = rng.choice(letters, n)
+    else:
+        seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), n)
+        seq[rng.random(n) < 0.01] = ord("N")
+        if name == "DNACaseSent":
+            seq = np.where((np.arange(n) // 1000) % 2 == 1, seq | 0x20, seq)
+    codes = alph.encode_table()[seq]
+    codes[999::1000] = 255
+    return codes.astype(np.uint8)
+
+
+@pytest.mark.parametrize("name,mode,k", [
+    ("Protein", "basic", 31), ("Protein", "basic", 7),
+    ("DNA5", "canonical", 31), ("DNA5", "basic", 13),
+    ("DNACaseSent", "primary", 31), ("DNACaseSent", "canonical", 15)])
+def test_alphabet_builds_cuda_equal_cpu(dev, name, mode, k):
+    """The B-bit collect and the finish over each alphabet at 2^16 codes:
+    the card's build equals the CPU build, array for array."""
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.kmer.alphabets import ALPHABETS
+    codes = _alphabet_codes(np.random.default_rng(k), name, 1 << 16)
+    p0 = merge.partition_launches
+    got, want = (build_boss_from_codes(codes, k, ALPHABETS[name], mode=mode,
+                                       bits_per_count=8, device=d)
+                 for d in (dev, "cpu"))
+    assert merge.partition_launches > p0
+    _same_boss(got, want)
+
+
+def test_small_state_cuda_equals_cpu(dev, tmp_path):
+    """A small-state graph on the card maps reads (the walk and its
+    stragglers), finds suffix ranges and aligns as on the CPU."""
+    from metagraph_tpu_torch.align.aligner import Aligner
+    from metagraph_tpu_torch.graph import io as graph_io
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    rng = np.random.default_rng(21)
+    codes = rng.integers(1, 5, 20000).astype(np.uint8)
+    g = DbgSuccinct.from_boss(build_boss_from_codes(codes, 20, device="cpu"))
+    p = graph_io.save_graph(str(tmp_path / "g"), g, state="small")
+    gs = [graph_io.load_graph(p, device=d) for d in (dev, "cpu")]
+    assert gs[0].boss.edge_lanes is None
+    ref = np.frombuffer(b"$ACGT", np.uint8)[codes].tobytes()
+    reads = []
+    for i in range(200):
+        a = int(rng.integers(0, len(ref) - 100))
+        r = bytearray(ref[a:a + 100])
+        if i % 3 == 0:
+            r[int(rng.integers(0, 100))] = ord("A")
+        reads.append(bytes(r) if i % 10 else bytes(
+            rng.choice(np.frombuffer(b"ACGT", np.uint8), 100)))
+    got, want = (x.map_read_batch(reads) for x in gs)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    pat = torch.from_numpy(rng.integers(1, 5, (300, 12)))
+    for a, b in zip(gs[0].boss.suffix_range_ranksel(pat.to(dev)),
+                    gs[1].boss.suffix_range_ranksel(pat)):
+        assert torch.equal(a.cpu(), b)
+    got, want = (Aligner(x).align_batch(reads[:40], with_cigar=False)
+                 for x in gs)
+    for gs_, ws in zip(got, want):
+        assert [(a.score, a.cigar, a.sequence) for a in gs_] == \
+            [(b.score, b.cigar, b.sequence) for b in ws]

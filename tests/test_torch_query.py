@@ -136,7 +136,7 @@ def test_row_sparse_from_coo():
     cols = rng.integers(0, 7, 400).astype(np.int32)
     vals = rng.integers(1, 9, 400).astype(np.int32)
     j = JRowSparse.from_coo(rows, cols, 50, 7, values=vals)
-    t = TRowSparse.from_coo(rows, cols, 50, 7, values=vals)
+    t = TRowSparse.from_coo(rows, cols, 50, 7, values=vals, device="cpu")
     for name in ("rows", "cols", "values"):
         np.testing.assert_array_equal(getattr(t, name).numpy(),
                                       np.asarray(getattr(j, name)))

@@ -142,7 +142,7 @@ def test_row_sparse_row_queries(with_values):
     cols = rng.integers(0, 9, 500).astype(np.int32)
     vals = rng.integers(1, 40, 500).astype(np.int32) if with_values else None
     j = JRowSparse.from_coo(rows, cols, 70, 9, values=vals)
-    t = RowSparse.from_coo(rows, cols, 70, 9, values=vals)
+    t = RowSparse.from_coo(rows, cols, 70, 9, values=vals, device="cpu")
     q = np.array([0, 5, 5, 59, 65, 12, 0], np.int32)   # repeats, empty row
     same(t.presence(tt(q)), j.presence(jt(q)))
     same(t.presence(tt(q[:0])), np.zeros((0, 9), bool))
