@@ -69,10 +69,32 @@ Phases (each raises on failure; the process exits non-zero):
         k = 31 primary (alternate runs of 1000 in lower case): stats
         --validate at full size, CUDA = CPU on 2^18 codes. In 3a: the
         k = 20 graph saved small (a smaller file), its 2^15 reads' labels,
-        3b's 2^13 alignments and every row's decode identical to the fast
-        state's.
-  4. the CLI: build, annotate, query, query --align, align (TSV and
-     --json) and stats with --device cuda; build --mode primary, stats,
+        3b's first 2^12 alignments and every row's decode identical to
+        the fast state's.
+     g. the graph algorithms. At k = 31 canonical on the 2^25 codes,
+        through the functions assemble and transform call: unitigs by
+        pointer doubling (a canonical build of them equals the graph),
+        contigs (their windows are every node once), the compacted GFA
+        (L lines = predecessors). clean through the CLI on 2^25 read
+        characters of a 2^20-base genome with 1 % substitutions
+        (build --count-kmers; clean --prune-tips 62 --prune-unitigs 0
+        --fallback 2 --to-fasta, then with --count-slice-quantiles):
+        >= 99 % of the genome k-mers and <= 1 % of the error k-mers
+        kept, the card's files on the first 2^14 reads equal the CPU
+        run's. In 3a: differential assembly (label_0 in, label_1 out)
+        by unitigs and by nodes equal to a numpy gold, and through the
+        CLI; transform --state small, whose assemble --unitigs equals
+        the fast graph's; align -o paths.gfa (plain and --compacted)
+        for 2^10 of 3b's reads; compare; transform --to-gfa and
+        --to-adj-list of the first 2^20 codes' graph. merge and extend
+        of k = 31 --count-kmers graphs of the halves of 1000 records of
+        the first 2^21 codes: merge equals the whole build (weights =
+        numpy gold), basic extend too; canonical extend equals the CPU
+        run on 2^16 codes (the reference's duplicates).
+  4. the CLI (build, stats and align in processes of their own, the
+     rest through its main in this process): build, annotate, query,
+     query --align, align (TSV and --json) and stats with --device
+     cuda; build --mode primary, stats,
      annotate and query (records and reverse complements) on it; build
      from a KMC database with --min-count 2; then, in this process, each
      flag of 3e: builds of two files, of a stdin list, with
@@ -839,9 +861,18 @@ def phase_main_path(dev):
     surface["validate"] = surface_validate(graph, real)
     align_launches, align_rates, aln_reads, aln_out = phase_align(
         graph, bq, codes, rng)
-    surface["small"] = phase_small_state(
-        graph, ann, reads, got, n_reads / dt, aln_reads, aln_out,
-        align_rates, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        surface["small"], fast_path = phase_small_state(
+            graph, ann, reads, got, n_reads / dt, aln_reads, aln_out,
+            align_rates, dev, tmp)
+        zero_launches()
+        graph_diff_assembly(graph, ann, records, labels, tmp, fast_path)
+        graph_k20_cli(graph, aln_reads, tmp, fast_path, dev)
+        surface["graph launches"] = read_launches()
+        check_launched(surface["graph launches"], BUILD_KERNELS,
+                       "phase 3g on the k=20 graph")
+        log(f"3g launch counts on the k=20 graph's paths: "
+            f"{surface['graph launches']}")
     align_launches = (align_launches, align_rates)
     del graph, boss, ann, bq
     torch.cuda.empty_cache()
@@ -866,6 +897,560 @@ def phase_main_path(dev):
         "equal the CPU build (k=20 basic, k=31 canonical)")
     check_align_cuda_cpu(dev)
     return launches, align_launches, results, surface
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the graph algorithms (assemble, clean, transform, compare,
+# extend, merge, align -o *.gfa)
+# ---------------------------------------------------------------------------
+
+CODE_OF = np.zeros(256, np.uint8)
+CODE_OF[np.frombuffer(b"ACGT", np.uint8)] = [1, 2, 3, 4]
+LETTERS = np.frombuffer(b"$ACGT", np.uint8)
+
+
+def seq_kmer_ints(seqs, K, canonical=True):
+    """2-bit ints of every K-window of ACGT byte strings (one pass over
+    their concatenation, windows across a boundary dropped);
+    ``canonical`` takes the smaller of each window and its reverse
+    complement."""
+    c = CODE_OF[np.frombuffer(b"$".join(seqs), np.uint8)]
+    if len(c) < K:
+        return np.zeros(0, np.uint64)
+    bad = np.concatenate([[0], np.cumsum(c == 0)])
+    ok = (bad[K:] - bad[:-K]) == 0
+    f = fwd_kmer_ints(c, K)
+    return (np.minimum(f, rc_kmer_ints(c, K)) if canonical else f)[ok]
+
+
+def read_fasta(path):
+    from metagraph_tpu_torch.seqio.fasta import parse_records
+    return [r.seq for r in parse_records(path)]
+
+
+def write_fasta(path, seqs, prefix="s"):
+    with open(path, "wb") as f:
+        f.write(b"".join(b">%s%d\n%s\n" % (prefix.encode(), i, s)
+                         for i, s in enumerate(seqs)))
+
+
+def gz_text(path):
+    import gzip
+    with gzip.open(path) as f:
+        return f.read()
+
+
+def cli_logged(device):
+    """The in-process CLI runner, returning (stdout, stderr)."""
+    run = cli_in_process(device)
+
+    def logged(*argv):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            out = run(*argv)
+        return out, err.getvalue()
+
+    return logged
+
+
+def timed_sync(times, name, fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    times[name] = time.time() - t0
+    return out
+
+
+def graph_assemble(dev):
+    """3g. Assembly of the k = 31 canonical graph of phase 3a's 2^25
+    codes through the functions the assemble and transform commands
+    call (the graph stays in memory: saving its 67 M edges costs about a
+    minute of zlib): unitigs by pointer doubling, their FASTA, a
+    canonical rebuild from them (equal W, last, F), contigs covering
+    every node exactly once (windows packed and sorted on the card
+    against the node k-mers), and the compacted GFA against
+    predecessors. Returns the stage times."""
+    import torch
+    from metagraph_tpu_torch.cli.main import _write_gfa
+    from metagraph_tpu_torch.common import packed
+    from metagraph_tpu_torch.graph import traversal as tt
+    from metagraph_tpu_torch.graph.boss_construct import (
+        build_boss, build_boss_from_codes)
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    from metagraph_tpu_torch.kmer import packing
+    from metagraph_tpu_torch.kmer.alphabets import DNA
+    from metagraph_tpu_torch.kmer.extractor import (encode_sequences,
+                                                    window_validity)
+    from metagraph_tpu_torch.seqio.fasta import FastaWriter
+    codes = np.random.default_rng(SEED).integers(1, 5, N_CODES).astype(
+        np.uint8)                                   # phase 3a's codes
+    t = {}
+    boss = timed_sync(t, "build", lambda: build_boss_from_codes(
+        codes, 31, mode="canonical", device=dev))
+    g = DbgSuccinct.from_boss(boss, mode="canonical")
+    N = g.num_nodes()
+    u = timed_sync(t, "decomposition", lambda: tt.unitig_decomposition(g))
+    seqs = timed_sync(t, "unitig sequences", lambda: tt.unitig_sequences(
+        g, u))
+    if sum(len(s) - 30 for s in seqs) != N:
+        raise AssertionError("3g assemble: unitigs do not hold every node")
+    with tempfile.TemporaryDirectory() as tmp:
+        def fasta_out():
+            with FastaWriter(os.path.join(tmp, "u.fasta.gz")) as w:
+                for s in seqs:
+                    w.write(s)
+        timed_sync(t, "unitig FASTA write", fasta_out)
+        rebuilt = timed_sync(t, "rebuild from unitigs", lambda: build_boss(
+            seqs, 31, mode="canonical", device=dev))
+        same_boss(rebuilt, boss, "3g unitig round trip",
+                  names=("W", "last", "F"))
+        del rebuilt
+        contigs = timed_sync(t, "contig sequences",
+                             lambda: tt.contig_sequences(g))
+        ct = torch.from_numpy(encode_sequences(contigs, DNA)).to(dev)
+        lanes = packing.pack_windows(ct, 31, 4)[:, window_validity(ct, 31)]
+        real = ~packing.contains_sentinel(boss.edge_lanes, 31, 4)
+        if lanes.shape[1] != N or not torch.equal(
+                packed.sort(lanes)[0], boss.edge_lanes[:, real]):
+            raise AssertionError("3g contigs: the windows are not every "
+                                 "node exactly once")
+        del ct, lanes, real
+        gfa = os.path.join(tmp, "g.gfa")
+        timed_sync(t, "compacted GFA write", lambda: _write_gfa(
+            g, gfa, compacted=True))
+        with open(gfa) as f:
+            rows = [line.rstrip("\n").split("\t") for line in f]
+    seg = [r for r in rows if r[0] == "S"]
+    ends = tt.unitig_ends(g, u).cpu().numpy()
+    if [int(r[1]) for r in seg] != ends.tolist() or \
+            [r[2].encode() for r in seg] != seqs:
+        raise AssertionError("3g GFA: S lines are not the unitigs")
+    preds = g.predecessors(u.starts).cpu().numpy()
+    want = sorted((int(p), int(e)) for e, row in zip(ends, preds)
+                  for p in row if p > 0)
+    got = sorted((int(r[1]), int(r[3])) for r in rows if r[0] == "L")
+    if got != want:
+        raise AssertionError("3g GFA: L lines differ from predecessors")
+    log(f"3g assemble, k=31 canonical graph of 2^25 codes ({N} nodes): "
+        f"{u.num_unitigs} unitigs ({int(u.lengths.max())} nodes the "
+        f"longest), {len(contigs)} contigs; the canonical build of the "
+        f"unitigs equals the graph (W, last, F); the contigs' windows are "
+        f"every node once; GFA: {len(seg)} S lines, {len(got)} L lines = "
+        f"predecessors; s: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                        t.items()))
+    return t
+
+
+def clean_reads(rng, n_chars, genome_len=1 << 20, rl=100, err=0.01):
+    """Reads of rl bp from both strands of a random genome, to n_chars
+    read characters, with uniform substitutions: (genome codes, (n, rl)
+    read codes)."""
+    genome = rng.integers(1, 5, genome_len).astype(np.uint8)
+    n = n_chars // rl
+    reads = genome[rng.integers(0, genome_len - rl + 1, n)[:, None]
+                   + np.arange(rl)]
+    flip = rng.random(n) < 0.5
+    reads[flip] = 5 - reads[flip, ::-1]
+    hit = rng.random(reads.shape) < err
+    reads[hit] = (reads[hit] - 1 + rng.integers(1, 4, int(hit.sum()))) % 4 + 1
+    return genome, reads
+
+
+def read_window_ints(reads, K):
+    """Canonical ints of every window inside each read."""
+    n, rl = reads.shape
+    flat = reads.reshape(-1)
+    f = fwd_kmer_ints(flat, K)
+    r = rc_kmer_ints(flat, K)
+    keep = (np.arange(len(f)) % rl) <= rl - K
+    return np.minimum(f, r)[keep]
+
+
+CLEAN_ARGS = ("--prune-tips", "62", "--prune-unitigs", "0", "--fallback",
+              "2", "--to-fasta")
+
+
+def graph_clean(dev):
+    """3g. clean on a sequencing run with errors: a random genome of 2^20
+    bases sampled as 100 bp reads from both strands to 2^25 read
+    characters with 1 % substitutions, built with build -k 31 --mode
+    canonical --count-kmers, cleaned with clean --prune-tips 62
+    --prune-unitigs 0 --fallback 2 --to-fasta, then with
+    --count-slice-quantiles "0 0.5 1". The kept genome and error k-mers
+    against a numpy gold; the CLI's files on the card byte-identical to
+    the CPU run on the first 2^14 reads. Returns numbers to report."""
+    run = cli_logged("cuda")
+    run_cpu = cli_logged("cpu")
+    genome, reads = clean_reads(np.random.default_rng(SEED + 30), N_CODES)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def p(name):
+            return os.path.join(tmp, name)
+        seqs = [LETTERS[r].tobytes() for r in reads]
+        write_fasta(p("reads.fa"), seqs, "r")
+        write_fasta(p("pre.fa"), seqs[:1 << 14], "r")
+        t0 = time.time()
+        run("build", "-k", "31", "--mode", "canonical", "--count-kmers",
+            "-o", p("g"), p("reads.fa"))
+        res["build s"] = time.time() - t0
+        t0 = time.time()
+        _, err = run("clean", "-i", p("g"), *CLEAN_ARGS, "-o", p("c"))
+        res["clean s"] = time.time() - t0
+        t0 = time.time()
+        run("clean", "-i", p("g"), *CLEAN_ARGS, "--count-slice-quantiles",
+            "0 0.5 1", "-o", p("q"))
+        res["clean slices s"] = time.time() - t0
+        thr = [line for line in err.splitlines() if "Threshold" in line
+               or "fallback" in line]
+        kept = [line for line in err.splitlines() if "Cleaned graph" in line]
+        res["threshold"] = thr[0].split(": ")[-1] if thr else "?"
+        res["kept"] = kept[0].split("kept ")[-1].split(" nodes")[0]
+        out = seq_kmer_ints(read_fasta(p("c.fasta.gz")), 31)
+        slices = [seq_kmer_ints(read_fasta(p(f"q.{a}.fasta.gz")), 31)
+                  for a in ("0.0.5", "0.5.1")]
+        n_side = len(gz_text(p("c.kmer_counts.gz")).splitlines())
+        n_seq = len(read_fasta(p("c.fasta.gz")))
+        # the CPU port on the first 2^14 reads, the card on the same
+        for d, r in (("cuda", run), ("cpu", run_cpu)):
+            r("build", "-k", "31", "--mode", "canonical", "--count-kmers",
+              "-o", p("pg" + d), p("pre.fa"))
+            r("clean", "-i", p("pg" + d), *CLEAN_ARGS, "-o", p("pc" + d))
+            r("clean", "-i", p("pg" + d), *CLEAN_ARGS,
+              "--count-slice-quantiles", "0 0.5 1", "-o", p("pq" + d))
+        for f in ("pc{}.fasta.gz", "pc{}.kmer_counts.gz",
+                  "pq{}.0.0.5.fasta.gz", "pq{}.0.5.1.fasta.gz"):
+            if gz_text(p(f.format("cuda"))) != gz_text(p(f.format("cpu"))):
+                raise AssertionError(f"3g clean: {f.format('')} on the card "
+                                     f"differs from the CPU run")
+    gold_g = np.unique(seq_kmer_ints([LETTERS[genome].tobytes()], 31))
+    in_reads = np.unique(read_window_ints(reads, 31))
+    genome_k = np.intersect1d(gold_g, in_reads, assume_unique=True)
+    error_k = np.setdiff1d(in_reads, gold_g, assume_unique=True)
+    out_u = np.unique(out)
+    if len(out_u) != len(out) or n_side != n_seq:
+        raise AssertionError("3g clean: a k-mer written twice, or the count "
+                             "sidecar out of step with the FASTA")
+    res["genome kept"] = np.isin(genome_k, out_u, assume_unique=True).mean()
+    res["error kept"] = np.isin(error_k, out_u, assume_unique=True).mean()
+    sl = np.concatenate(slices)
+    if len(np.unique(sl)) != len(sl) or not np.array_equal(np.sort(sl),
+                                                           out_u):
+        raise AssertionError("3g clean: the count slices do not split the "
+                             "cleaned k-mers")
+    log(f"3g clean, {len(reads)} reads of 100 bp (2^25 chars, 1 % "
+        f"substitutions) of a 2^20-base genome: {len(genome_k)} genome and "
+        f"{len(error_k)} error canonical 31-mers in the reads; threshold "
+        f"{res['threshold']}; kept {res['kept']} nodes, {n_seq} contigs; "
+        f"genome k-mers kept {res['genome kept']:.6f}, error k-mers kept "
+        f"{res['error kept']:.6f}; the slices split the kept k-mers; CLI "
+        f"build {res['build s']:.1f} s, clean {res['clean s']:.1f} s, with "
+        f"slices {res['clean slices s']:.1f} s; the card's files on the "
+        f"first 2^14 reads equal the CPU run's")
+    if res["genome kept"] < 0.99 or res["error kept"] > 0.01:
+        raise AssertionError("3g clean: fewer than 99 % of the genome k-mers "
+                             "or more than 1 % of the error k-mers kept")
+    return res
+
+
+def graph_diff_assembly(graph, ann, records, labels, tmp, fast_path):
+    """3g. Differential assembly on phase 3a's k = 20 graph and its 1000
+    labelled records: label_0 in, label_1 out, by unitigs and by nodes,
+    against a numpy gold of the JAX rule (diff_assembly.py: a unitig is
+    kept when one of its nodes carries label_0 and none label_1; a node
+    when it carries label_0 and not label_1), the labels taken from the
+    records; then assemble -a ... --unitigs through the CLI, whose FASTA
+    must hold the same unitigs, and assemble without --unitigs, which
+    fails as in the reference."""
+    import torch
+    from metagraph_tpu_torch.engine.annotated_dbg import AnnotatedDbg
+    from metagraph_tpu_torch.engine.diff_assembly import differential_assembly
+    from metagraph_tpu_torch.graph import traversal as tt
+    from metagraph_tpu_torch.kmer.packing import unpack_to_chars
+    t = {}
+    adbg = AnnotatedDbg(graph=graph, annotation=ann)
+    m_u = differential_assembly(adbg, ["label_0"], ["label_1"])
+    seqs_u = timed_sync(t, "unitig mode", lambda: tt.unitig_sequences(m_u))
+    m_n = differential_assembly(adbg, ["label_0"], ["label_1"],
+                                unitig_mode=False)
+    seqs_n = timed_sync(t, "node mode", lambda: tt.contig_sequences(m_n))
+    ins = np.unique(seq_kmer_ints([r for r, l in zip(records, labels)
+                                   if l == "label_0"], 20, False))
+    outs = np.unique(seq_kmer_ints([r for r, l in zip(records, labels)
+                                    if l == "label_1"], 20, False))
+    gold_n = np.setdiff1d(ins, outs, assume_unique=True)
+    got_n = seq_kmer_ints(seqs_n, 20, False)
+    if len(got_n) != len(gold_n) or not np.array_equal(np.sort(got_n),
+                                                       gold_n):
+        raise AssertionError("3g diff assembly by nodes differs from gold")
+    # the unitig rule over the graph's unitigs, labels from the records
+    u = tt.unitig_decomposition(graph)
+    chars = unpack_to_chars(graph.node_lanes(torch.arange(
+        1, graph.num_nodes() + 1, device=graph.device)), 20, 4)
+    key = torch.zeros(chars.shape[0], dtype=torch.int64, device=chars.device)
+    for j in range(20):
+        key = (key << 2) | (chars[:, j].to(torch.int64) - 1)
+    key = key.cpu().numpy().astype(np.uint64)
+    del chars
+    cid = u.chain_id[1:].cpu().numpy()
+    has_in = np.zeros(u.num_unitigs, bool)
+    has_out = np.zeros(u.num_unitigs, bool)
+    has_in[cid[np.isin(key, ins)]] = True
+    has_out[cid[np.isin(key, outs)]] = True
+    gold_u = np.sort(key[(has_in & ~has_out)[cid]])
+    got_u = seq_kmer_ints(seqs_u, 20, False)
+    if not len(got_u) or len(got_u) != len(gold_u) or \
+            not np.array_equal(np.sort(got_u), gold_u):
+        raise AssertionError("3g diff assembly by unitigs differs from gold")
+    anno = os.path.join(tmp, "anno.column.annodbg.npz")
+    ann.save(anno)
+    run = cli_in_process("cuda")
+    t0 = time.time()
+    run("assemble", "-i", fast_path, "-a", anno, "--label-mask-in",
+        "label_0", "--label-mask-out", "label_1", "--unitigs", "-o",
+        os.path.join(tmp, "du"))
+    t["CLI assemble -a --unitigs"] = time.time() - t0
+    if read_fasta(os.path.join(tmp, "du.fasta.gz")) != seqs_u:
+        raise AssertionError("3g CLI differential assembly differs")
+    try:
+        run("assemble", "-i", fast_path, "-a", anno, "--label-mask-in",
+            "label_0", "--label-mask-out", "label_1", "-o",
+            os.path.join(tmp, "dn"))
+    except AssertionError as e:
+        if "label_other_fraction" not in str(e):
+            raise
+    else:
+        raise AssertionError("3g: assemble with label masks and without "
+                             "--unitigs must fail, as in the reference")
+    log(f"3g differential assembly (label_0 in, label_1 out) on the k=20 "
+        f"graph: {len(seqs_u)} unitigs holding {len(got_u)} k-mers and "
+        f"{len(seqs_n)} contigs holding {len(got_n)} k-mers, both equal to "
+        f"the numpy gold of the JAX rule; the CLI's unitigs equal the "
+        f"API's; without --unitigs the CLI exits non-zero (the "
+        f"reference's fault); s: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                              t.items()))
+    return t
+
+
+GFA_CODES = 1 << 20
+
+
+def graph_k20_cli(graph, aln_reads, tmp, fast_path, dev):
+    """3g. On phase 3a's k = 20 graph file: transform --state small, then
+    assemble --unitigs on the fast and the small file (byte-identical);
+    align -o paths.gfa with and without --compacted for 2^10 of phase
+    3b's reads (every P line holds the read's mapped nodes; compacted,
+    the unitig ends among them and the end of the last node's unitig);
+    compare of equal and unequal pairs. Then the first 2^20 codes' k = 20
+    graph: transform --to-gfa (non-compacted: every node an S line with
+    its k-mer, every edge one L line) and --to-adj-list (each node's
+    successors)."""
+    import torch
+    from metagraph_tpu_torch.graph import traversal as tt
+    run = cli_in_process("cuda")
+    t = {}
+
+    def p(name):
+        return os.path.join(tmp, name)
+
+    def timed_run(name, *argv):
+        t0 = time.time()
+        out = run(*argv)
+        t[name] = time.time() - t0
+        return out
+
+    timed_run("transform --state small", "transform", "-i", fast_path,
+              "--state", "small", "-o", p("g20small"))
+    timed_run("assemble --unitigs (fast)", "assemble", "-i", fast_path,
+              "--unitigs", "-o", p("uf"))
+    timed_run("assemble --unitigs (small)", "assemble", "-i",
+              p("g20small"), "--unitigs", "-o", p("us"))
+    fast_u = gz_text(p("uf.fasta.gz"))
+    if gz_text(p("us.fasta.gz")) != fast_u:
+        raise AssertionError("3g small-state unitigs differ from the fast "
+                             "state's")
+    reads = aln_reads[:1 << 10]
+    write_fasta(p("aln.fa"), reads, "a")
+    timed_run("align -o paths.gfa", "align", "-i", fast_path, "-o",
+              p("paths.gfa"), p("aln.fa"))
+    timed_run("align --compacted -o paths.gfa", "align", "-i", fast_path,
+              "--compacted", "-o", p("cpaths.gfa"), p("aln.fa"))
+    u = tt.unitig_decomposition(graph)
+    ends = set(tt.unitig_ends(graph, u).cpu().numpy().tolist())
+    for name, compacted in (("paths", False), ("cpaths", True)):
+        with open(p(name + ".path.gfa")) as f:
+            lines = [line.rstrip("\n").split("\t") for line in f]
+        if len(lines) != len(reads):
+            raise AssertionError(f"3g {name}: {len(lines)} P lines")
+        for i, (row, r) in enumerate(zip(lines, reads)):
+            nodes = [int(x[:-1]) for x in row[2].split(",")]
+            path = graph.map_to_nodes(r).tolist()
+            want = path if not compacted else \
+                [v for v in path[:-1] if v in ends]
+            if row[:2] != ["P", str(i + 1)] or (
+                    nodes != want if not compacted else
+                    nodes[:-1] != want or (nodes[-1] not in ends
+                                           and nodes[-1] != 0)):
+                raise AssertionError(f"3g {name}: P line {i + 1} is not "
+                                     f"the read's nodes")
+    codes = np.random.default_rng(SEED).integers(1, 5, N_CODES).astype(
+        np.uint8)[:GFA_CODES]
+    write_fasta(p("pre.fa"), [LETTERS[codes].tobytes()], "c")
+    run("build", "-k", "20", "-o", p("pre"), p("pre.fa"))
+    timed_run("transform --to-gfa (2^20 codes)", "transform", "-i",
+              p("pre"), "--to-gfa", "-o", p("pre"))
+    timed_run("transform --to-adj-list (2^20 codes)", "transform", "-i",
+              p("pre"), "--to-adj-list", "-o", p("pre"))
+    run("transform", "-i", p("pre"), "--state", "small", "-o",
+        p("pre_small"))
+    write_fasta(p("half.fa"), [LETTERS[codes[:len(codes) // 2]].tobytes()])
+    run("build", "-k", "20", "-o", p("half"), p("half.fa"))
+    same = [run("compare", p("pre"), p("pre")),
+            run("compare", p("pre"), p("pre_small")),
+            run("compare", p("pre"), p("half"))]
+    if same != ["Graphs are identical\n"] * 2 + ["Graphs are not "
+                                                  "identical\n"]:
+        raise AssertionError(f"3g compare: {same}")
+    from metagraph_tpu_torch.graph.io import load_graph
+    pg = load_graph(p("pre"), device=dev)
+    n = pg.num_nodes()
+    succ = pg.successors(torch.arange(1, n + 1, device=dev)).cpu().numpy()
+    with open(p("pre.gfa")) as f:
+        rows = [line.rstrip("\n").split("\t") for line in f]
+    seg = [r for r in rows if r[0] == "S"]
+    links = sum(1 for r in rows if r[0] == "L")
+    gold = np.unique(fwd_kmer_ints(codes, 20))
+    got = np.sort(seq_kmer_ints([r[2].encode() for r in seg], 20, False))
+    if len(seg) != n or not np.array_equal(got, gold) or \
+            links != int((succ > 0).sum()):
+        raise AssertionError("3g GFA of the 2^20-code graph: not every node "
+                             "an S line with its k-mer and every edge an L "
+                             "line")
+    with open(p("pre.adjlist")) as f:
+        adj = [line.rstrip("\n").split("\t") for line in f]
+    want = [[str(i), " ".join(str(x) for x in row if x > 0)]
+            for i, row in enumerate(succ.tolist(), start=1)]
+    if adj != want:
+        raise AssertionError("3g --to-adj-list differs from successors")
+    log(f"3g k=20 graph CLI: small-state unitigs byte-identical to the fast "
+        f"state's ({len(fast_u)} bytes); align -o paths.gfa, plain and "
+        f"--compacted: {len(reads)} P lines of the reads' mapped nodes; "
+        f"compare: equal, equal (small), unequal; 2^20-code graph ({n} "
+        f"nodes): GFA {len(seg)} S and {links} L lines, adjacency list = "
+        f"successors; s: " + ", ".join(f"{k} {v:.2f}" for k, v in t.items()))
+    return t
+
+
+EXTEND_CODES = 1 << 21
+
+
+def graph_extend_merge(dev):
+    """3g. merge and extend, the first 2^21 of the 2^25 codes as 1000
+    records (cut from 2^25: every graph of this path is written and read
+    as a .dbg.npz by the CLI), halves of 500: k = 31 canonical graphs
+    with --count-kmers; merge of the halves equals the build of all
+    records (W, last, F; weights equal a numpy gold of summed counts,
+    31-bit); extend of the first half's basic graph by the second half
+    equals the basic build of all, weights included; extend of the
+    canonical graph holds the old k-mers twice, as in the reference, and
+    equals the CPU run on the first 2^16 codes. Returns the launches."""
+    from metagraph_tpu_torch.graph.boss_construct import build_boss
+    from metagraph_tpu_torch.graph.io import load_graph
+    run = cli_in_process("cuda")
+    run_cpu = cli_in_process("cpu")
+    codes = np.random.default_rng(SEED).integers(1, 5, N_CODES).astype(
+        np.uint8)[:EXTEND_CODES]
+    recs = split_records(codes, 1000)
+    t = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def p(name):
+            return os.path.join(tmp, name)
+        write_fasta(p("h1.fa"), recs[:500])
+        write_fasta(p("h2.fa"), recs[500:])
+        write_fasta(p("all.fa"), recs)
+        before = read_launches()
+        for name, mode in (("h1", "canonical"), ("h2", "canonical"),
+                           ("hb1", "basic")):
+            run("build", "-k", "31", "--mode", mode, "--count-kmers", "-o",
+                p(name), p(name.replace("b", "") + ".fa"))
+        for name, argv in (("merge", ("merge", "-o", p("m"), p("h1"),
+                                      p("h2"))),
+                           ("extend canonical", ("extend", "-i", p("h1"),
+                                                 "-o", p("e"), p("h2.fa"))),
+                           ("extend basic", ("extend", "-i", p("hb1"), "-o",
+                                             p("eb"), p("h2.fa")))):
+            t0 = time.time()
+            run(*argv)
+            t[name] = time.time() - t0
+        launches = launch_delta(before)
+        check_launched(launches, BUILD_KERNELS, "extend and merge")
+        # the whole builds in memory (what build -k 31 --count-kmers of
+        # all records makes, before it saves)
+        whole, whole_b = (build_boss(recs, 31, mode=mode, bits_per_count=8,
+                                     device=dev)
+                          for mode in ("canonical", "basic"))
+        m = load_graph(p("m"), device=dev)
+        same_boss(m.boss, whole, "3g merge", names=("W", "last", "F"))
+        keys, w = graph_keys_weights(m.boss, 31)
+        contigs = [CODE_OF[np.frombuffer(r, np.uint8)] for r in recs]
+        gk, gw = weighted_gold(contigs, [np.ones(len(c) - 30, np.int64)
+                                         for c in contigs], 31,
+                               max_count=(1 << 31) - 1)
+        if not (np.array_equal(keys, gk) and np.array_equal(w, gw)):
+            raise AssertionError("3g merge: weights differ from the numpy "
+                                 "gold of summed counts")
+        eb = load_graph(p("eb"), device=dev)
+        same_boss(eb.boss, whole_b, "3g extend basic",
+                  names=("W", "last", "F", "weights"))
+        e = load_graph(p("e"), device=dev)
+        if e.num_nodes() <= m.num_nodes():
+            raise AssertionError("3g canonical extend: expected the "
+                                 "reference's duplicated k-mers")
+        # the canonical extend, card against CPU, on the first 2^16 codes
+        pre = split_records(codes[:1 << 16], 20)
+        write_fasta(p("p1.fa"), pre[:10])
+        write_fasta(p("p2.fa"), pre[10:])
+        for d, r in (("cuda", run), ("cpu", run_cpu)):
+            r("build", "-k", "31", "--mode", "canonical", "--count-kmers",
+              "-o", p("pp" + d), p("p1.fa"))
+            r("extend", "-i", p("pp" + d), "-o", p("pe" + d), p("p2.fa"))
+        a, b = (load_graph(p("pe" + d), device="cpu") for d in ("cuda",
+                                                                 "cpu"))
+        same_boss(a.boss, b.boss, "3g canonical extend, card against CPU")
+    log(f"3g merge / extend, 1000 records of the first 2^21 codes, k=31 "
+        f"--count-kmers: merge of the halves = the build of all "
+        f"({m.num_nodes()} nodes; W, last, F; weights = numpy gold of "
+        f"summed counts); basic "
+        f"extend = the basic build of all, weights included; canonical "
+        f"extend {e.num_nodes()} nodes (the reference's duplicates), card "
+        f"= CPU on 2^16 codes; launches {launches}; s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in t.items()))
+    return launches
+
+
+def launch_delta(before):
+    now = read_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def phase_graph(dev):
+    """3g on its own (the k = 20 parts run inside the main path, where
+    that graph lives): assemble at k = 31 canonical, clean, merge and
+    extend, with every kernel's launch counter zeroed just before and
+    read just after; returns the launch counts."""
+    zero_launches()
+    before = read_launches()
+    graph_assemble(dev)
+    log(f"3g assemble launches: {launch_delta(before)}")
+    before = read_launches()
+    graph_clean(dev)
+    log(f"3g clean launches: {launch_delta(before)}")
+    graph_extend_merge(dev)
+    launches = read_launches()
+    check_launched(launches, BUILD_KERNELS, "phase 3g")
+    log(f"3g launch counts (assemble, clean, merge, extend): {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -990,29 +1575,34 @@ def phase_align(graph, bq, codes, rng):
 # phase 3f: the small state (no edge k-mers: rank/select searches only)
 # ---------------------------------------------------------------------------
 
+# 3b's first 2^12 reads (of 2^13): the small state aligns at ~450 reads/s
+SMALL_ALIGN_READS = 1 << 12
+
+
 def phase_small_state(graph, ann, reads, labels_fast, fast_rate, aln_reads,
-                      aln_out, aln_rates, dev):
+                      aln_out, aln_rates, dev, tmp):
     """3f. Phase 3a's k = 20 graph saved small (no edge k-mers) and loaded:
     the file is smaller than the fast one; the 2^15 reads' labels (the
-    incremental rank/select walk) and 3b's 2^13 alignments with CIGARs and
-    score-only (seeds by rank/select search, suffix seeds of the random
-    reads by suffix_range_ranksel, neighbours by the bwd-walk decode) are
+    incremental rank/select walk) and 3b's first 2^12 alignments with
+    CIGARs and score-only (seeds by rank/select search, suffix seeds of
+    the random reads by suffix_range_ranksel, neighbours by the bwd-walk
+    decode) are
     identical to the fast state's, and so is every row's decode (what
-    stats --print prints). Returns the rates."""
+    stats --print prints). Returns the rates and the fast file in
+    ``tmp``."""
     import torch
     from metagraph_tpu_torch.align.aligner import Aligner
     from metagraph_tpu_torch.engine.annotated_dbg import (AnnotatedDbg,
                                                           BatchQuery)
     from metagraph_tpu_torch.graph import io as graph_io
     from metagraph_tpu_torch.kmer import packing
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        pf = graph_io.save_graph(os.path.join(tmp, "fast"), graph)
-        ps = graph_io.save_graph(os.path.join(tmp, "small"), graph,
-                                 state="small")
-        t_save = time.time() - t0
-        sizes = os.path.getsize(pf), os.path.getsize(ps)
-        gs = graph_io.load_graph(ps, device=dev)
+    t0 = time.time()
+    pf = graph_io.save_graph(os.path.join(tmp, "fast"), graph)
+    ps = graph_io.save_graph(os.path.join(tmp, "small"), graph,
+                             state="small")
+    t_save = time.time() - t0
+    sizes = os.path.getsize(pf), os.path.getsize(ps)
+    gs = graph_io.load_graph(ps, device=dev)
     if gs.boss.edge_lanes is not None or sizes[1] >= sizes[0]:
         raise AssertionError(f"small state: file {sizes[1]} B, not below the "
                              f"fast state's {sizes[0]} B")
@@ -1035,18 +1625,19 @@ def phase_small_state(graph, ann, reads, labels_fast, fast_rate, aln_reads,
         f"= {len(reads) / dt:.0f} reads/s (fast state {fast_rate:.0f} "
         f"reads/s); labels identical to the fast state's")
     al = Aligner(gs)
+    sub = aln_reads[:SMALL_ALIGN_READS]
     for with_cigar in (True, False):
         torch.cuda.synchronize()
         t0 = time.time()
-        out = al.align_batch(aln_reads, with_cigar=with_cigar)
+        out = al.align_batch(sub, with_cigar=with_cigar)
         torch.cuda.synchronize()
         dt = time.time() - t0
         what = "with CIGARs" if with_cigar else "score-only"
-        _same_alignments(out, aln_out[with_cigar],
+        _same_alignments(out, aln_out[with_cigar][:len(sub)],
                          f"small-state align {what}")
-        rates[what] = len(aln_reads) / dt
-        log(f"3f small-state align_batch {what}: {len(aln_reads)} reads in "
-            f"{dt:.3f} s = {len(aln_reads) / dt:.1f} reads/s (fast state "
+        rates[what] = len(sub) / dt
+        log(f"3f small-state align_batch {what}: {len(sub)} reads in "
+            f"{dt:.3f} s = {len(sub) / dt:.1f} reads/s (fast state "
             f"{aln_rates[with_cigar]:.1f}); every field identical to the "
             f"fast state's")
     # stats --print decodes every row: the bwd-walk decode of the small
@@ -1066,7 +1657,7 @@ def phase_small_state(graph, ann, reads, labels_fast, fast_rate, aln_reads,
         f"edge k-mers in {time.time() - t0:.2f} s")
     del gs, bq, al
     torch.cuda.empty_cache()
-    return rates
+    return rates, pf
 
 
 def _same_alignments(got, want, what):
@@ -2049,7 +2640,8 @@ def phase_cli(device):
                 f.write(f">{name}\n{seq}\n")
         g = os.path.join(tmp, "g")
 
-        def run(*argv):
+        def run_proc(*argv):
+            """The CLI in a process of its own, as a user runs it."""
             res = subprocess.run(
                 [sys.executable, "-m", "metagraph_tpu_torch.cli.main", *argv,
                  "--device", device], capture_output=True, text=True,
@@ -2059,11 +2651,14 @@ def phase_cli(device):
                                      f"{res.returncode}:\n{res.stderr}")
             return res.stdout
 
+        # each process takes ~8 s to reach the card: three commands run in
+        # processes of their own, the rest in this one
+        run = cli_in_process(device)
         # canonical for query and stats; basic for the alignments (the
         # aligner spells canonical nodes without their orientation, as the
         # JAX package does, so a canonical path's spelling is not the read)
         gb = os.path.join(tmp, "gb")
-        run("build", "-k", "31", "--mode", "canonical", "-o", g, fa)
+        run_proc("build", "-k", "31", "--mode", "canonical", "-o", g, fa)
         run("build", "-k", "31", "--mode", "basic", "-o", gb, fa)
         want = [f"{i}\t{n}\t{n}" for i, n in enumerate(names)]
         for graph, extra in ((g, ()), (gb, ("--align",))):
@@ -2073,12 +2668,12 @@ def phase_cli(device):
             if out.splitlines() != want:
                 raise AssertionError(f"CLI query {' '.join(extra)} output "
                                      f"wrong: {out.splitlines()[:3]}")
-        stats = run("stats", g)
+        stats = run_proc("stats", g)
         if "mode: canonical" not in stats:
             raise AssertionError(f"CLI stats output wrong:\n{stats}")
         seqs = {n: s for n, s in zip(names, seqs)}
         rows = [line.split("\t") for line in
-                run("align", "-i", gb, fa).splitlines()]
+                run_proc("align", "-i", gb, fa).splitlines()]
         if [r[0] for r in rows] != names or any(
                 r[2:] != ["+", seqs[r[0]], str(2 * len(seqs[r[0]])),
                           str(len(seqs[r[0]])), f"{len(seqs[r[0]])}=", "0"]
@@ -2162,11 +2757,13 @@ def main():
         return out
 
     summary = timed(phase_kernels, dev)
-    build_launches, (align_launches, _), _, _ = timed(phase_main_path, dev)
+    build_launches, (align_launches, _), _, surface = timed(
+        phase_main_path, dev)
     primary_launches = timed(phase_primary, dev)
     timed(phase_kmc, dev)
     timed(phase_sidecar, dev)
     alph_launches, alph_align = timed(phase_alphabets, dev)
+    graph_launches = timed(phase_graph, dev)
     timed(phase_cli, "cuda")
 
     kernels = []
@@ -2180,10 +2777,12 @@ def main():
             ("pallas_dp", "metagraph_tpu_torch/csrc/align_dp.cu",
              "metagraph_tpu/align/pallas_dp.py:185", align_launches)):
         err, ms, plain, lib_ms, (bound_ms, bound_by) = summary[kname]
-        # the main path's runs and phase 3f's (its builds and its
-        # score-only Protein alignment)
-        n_launch = launches[kname] + (alph_align if kname == "pallas_dp"
-                                      else alph_launches)[kname]
+        # the main path's runs, phase 3f's (its builds and its
+        # score-only Protein alignment) and phase 3g's
+        n_launch = (launches[kname] + (alph_align if kname == "pallas_dp"
+                                       else alph_launches)[kname]
+                    + graph_launches[kname]
+                    + surface["graph launches"][kname])
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n_launch,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,

@@ -37,8 +37,14 @@ class LabelEncoder:
             self._labels.append(label)
         return self._index[label]
 
+    def encode(self, label: str) -> int:
+        return self._index[label]
+
     def decode(self, code: int) -> str:
         return self._labels[code]
+
+    def __contains__(self, label: str) -> bool:
+        return label in self._index
 
     def __len__(self) -> int:
         return len(self._labels)

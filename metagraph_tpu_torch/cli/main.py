@@ -1,6 +1,9 @@
 """The ``metagraph`` CLI of the port: build, annotate, query, align and
 stats, on basic, canonical and primary graphs over the DNA, DNA5,
-DNACaseSent and Protein alphabets, in the fast or the small state.
+DNACaseSent and Protein alphabets, in the fast or the small state; and
+the graph algorithms: assemble (unitigs, contigs, GFA, differential
+assembly by label masks), clean, transform, compare, extend, merge and
+align -o *.gfa.
 
 PyTorch counterpart of ``metagraph_tpu/cli/main.py`` for the subset the
 port covers; stdout is byte for byte that of the JAX CLI. Every command
@@ -24,6 +27,15 @@ subcommand or flag exits non-zero with "not yet ported".
     python -m metagraph_tpu_torch.cli.main query --align -i graph \
         -a graph.column.annodbg.npz q.fa
     python -m metagraph_tpu_torch.cli.main stats --validate --count-dummy graph
+    python -m metagraph_tpu_torch.cli.main assemble -i graph --unitigs -o u
+    python -m metagraph_tpu_torch.cli.main assemble -i graph --unitigs \
+        -a graph.column.annodbg.npz --label-mask-in A --label-mask-out B -o d
+    python -m metagraph_tpu_torch.cli.main clean -i graph --prune-tips 62 \
+        --prune-unitigs 0 --to-fasta -o cleaned
+    python -m metagraph_tpu_torch.cli.main transform -i graph --to-gfa -o g
+    python -m metagraph_tpu_torch.cli.main extend -i graph -o ext more.fa
+    python -m metagraph_tpu_torch.cli.main merge -o merged g1 g2
+    python -m metagraph_tpu_torch.cli.main align -i graph -o paths.gfa q.fa
 """
 
 from __future__ import annotations
@@ -37,10 +49,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 # the JAX CLI's other subcommands
-_NOT_PORTED = ("clean", "extend", "merge", "concatenate", "compare",
-               "transform", "transform_anno", "relax_brwt", "assemble",
-               "merge_anno", "server_query", "coordinate", "coordinator",
-               "worker")
+_NOT_PORTED = ("concatenate", "transform_anno", "relax_brwt", "merge_anno",
+               "server_query", "coordinate", "coordinator", "worker")
 
 
 # reference options the JAX CLI accepts on every subcommand with no
@@ -486,10 +496,12 @@ def cmd_align(args):
     from ..align.aligner import Aligner, AlignerConfig
     from ..seqio.fasta import parse_records
 
-    if args.outfile_base and args.outfile_base.endswith(".gfa"):
-        raise SystemExit("align: the GFA path mode (-o *.gfa) is not yet "
-                         "ported")
     g = _load_graph(args.infile_base, args.device)
+    if args.outfile_base and args.outfile_base.endswith(".gfa"):
+        # the GFA path mode (align.cpp gfa_map_files): each read's nodes
+        # as a P line
+        _align_gfa_paths(g, args)
+        return
     cfg = AlignerConfig(
         match_score=args.match_score,
         mm_transition_penalty=args.mm_transition_penalty,
@@ -576,6 +588,420 @@ def cmd_align(args):
         out.write(row + "\n")
     if out is not sys.stdout:
         out.close()
+
+
+# ---------------------------------------------------------------------------
+# assemble / clean
+# ---------------------------------------------------------------------------
+
+def cmd_assemble(args):
+    from ..graph.traversal import contig_sequences, unitig_sequences
+    from ..seqio.fasta import FastaWriter
+
+    g = _load_graph(args.infile_base or args.fnames[0], args.device)
+    if args.label_mask_in or args.label_mask_out:
+        if not args.unitigs:
+            # the JAX CLI hands label_other_fraction to the node-level mask,
+            # which takes no such argument (metagraph_tpu/cli/main.py:836,
+            # TypeError): a fault of the reference, matched
+            raise SystemExit(
+                "assemble: label masks need --unitigs (the node-level mask "
+                "fails in the reference: mask_nodes_by_node_label takes no "
+                "label_other_fraction)")
+        from ..anno.annotator import Annotation
+        from ..engine.annotated_dbg import AnnotatedDbg
+        from ..engine.diff_assembly import differential_assembly
+        ann = Annotation.load(args.annotation, device=args.device)
+        g = differential_assembly(
+            AnnotatedDbg(graph=g, annotation=ann),
+            args.label_mask_in or [], args.label_mask_out or [],
+            label_mask_in_fraction=args.label_mask_in_fraction,
+            label_mask_out_fraction=args.label_mask_out_fraction,
+            label_other_fraction=args.label_other_fraction)
+    if args.to_gfa:
+        if not args.unitigs:
+            log("Flag '--unitigs' must be set for GFA output")
+            sys.exit(1)
+        _write_gfa(g, args.outfile_base + ".gfa", compacted=args.compacted)
+        log(f"Wrote GFA to {args.outfile_base}.gfa")
+    seqs = (unitig_sequences(g, min_length=args.min_length) if args.unitigs
+            else contig_sequences(g))
+    with FastaWriter(args.outfile_base + ".fasta.gz", header="",
+                     enumerate_sequences=True) as w:
+        for s in seqs:
+            w.write(s)
+    log(f"Assembled {len(seqs)} sequences -> {args.outfile_base}.fasta.gz")
+
+
+def _count_quantile(sorted_counts: np.ndarray, q: float) -> int:
+    """The count at quantile q of sorted counts: the smallest count
+    whose cumulative share reaches q (utils::get_quantile)."""
+    idx = min(int(np.ceil(q * len(sorted_counts))), len(sorted_counts) - 1)
+    return int(sorted_counts[idx])
+
+
+def cmd_clean(args):
+    """Cleaned contigs or unitigs, with a count sidecar on weighted
+    graphs (reference cli/clean.cpp:28-200): the node min / max-count
+    mask, then unitig-level tip pruning and the median-abundance filter;
+    canonical graphs are written in single (primary) form, so that a
+    canonical rebuild gives back the node set and counts."""
+    from ..graph.cleaning import (clean_node_mask,
+                                  estimate_min_kmer_abundance, node_weights)
+    from ..graph.masked import MaskedDbg
+    from ..graph.traversal import (contig_sequences, single_form_mask,
+                                   unitig_sequences)
+    from ..seqio.fasta import ExtendedFastaWriter, FastaWriter
+
+    g = _load_graph(args.infile_base or args.fnames[0], args.device,
+                    wrap_primary=False)
+    has_weights = g.boss.weights is not None
+    node_w = node_weights(g) if has_weights else None
+    node_w_h = node_w.cpu().numpy() if has_weights else None
+    if args.min_count_q > 0 or args.max_count_q < 1:
+        # count thresholds from quantiles of the nonzero node counts
+        if not has_weights:
+            raise SystemExit("clean: --min/max-count-q need k-mer counts")
+        w = np.sort(node_w_h[node_w_h > 0])
+        if args.min_count_q > 0:
+            args.min_count = max(args.min_count,
+                                 _count_quantile(w, args.min_count_q))
+        if args.max_count_q < 1:
+            mc = _count_quantile(w, args.max_count_q)
+            args.max_count = mc if args.max_count is None \
+                else min(args.max_count, mc)
+        log(f"count thresholds from quantiles: min {args.min_count} "
+            f"max {args.max_count}")
+    prune_unitigs = args.prune_unitigs
+    if prune_unitigs == 0 or args.min_count_auto:
+        # --prune-unitigs 0: the automatic threshold (clean.cpp:76-100)
+        est = estimate_min_kmer_abundance(g, args.num_singletons)
+        if est < 0:
+            if args.fallback < 0:
+                log("Cannot estimate expected minimum k-mer abundance "
+                    "and fallback is disabled (--fallback -1). Terminating.")
+                sys.exit(129)
+            log("Cannot estimate expected minimum k-mer abundance. "
+                f"Using fallback value: {args.fallback}")
+            prune_unitigs = args.fallback
+        else:
+            prune_unitigs = est
+            log(f"Threshold for median k-mer abundance in unitigs: {est}")
+
+    unitig_mode = (args.unitigs or args.prune_tips > 1 or prune_unitigs > 1
+                   or args.smoothing_window > 1)
+    filtered = (args.min_count > 1 or args.max_count is not None
+                or prune_unitigs > 1 or args.prune_tips > 1)
+    if filtered and not has_weights:
+        # the JAX package's clean_node_mask reads the node weights even
+        # for tip pruning alone (AssertionError in graph/cleaning.py
+        # node_weights): a fault of the reference, matched
+        raise SystemExit("clean: count or tip filters need a graph built "
+                         "with --count-kmers (as in the reference)")
+    mask = clean_node_mask(g, min_count=args.min_count,
+                           max_count=args.max_count,
+                           prune_unitigs=prune_unitigs,
+                           min_tip_size=args.prune_tips, node_w=node_w) \
+        if filtered else None
+    single_form = g.mode == "canonical"
+    if single_form:
+        sf = single_form_mask(g)
+        mask = sf if mask is None else (mask & sf)
+    sub = MaskedDbg(base=g, mask=mask) if mask is not None else g
+    if unitig_mode and not (single_form or mask is not None):
+        seqs, paths = unitig_sequences(sub, return_paths=True)
+    else:
+        # contigs, also after masking, where the unitigs of the masked
+        # graph are the kept paths and kept fragments
+        seqs, paths = contig_sequences(sub, return_paths=True)
+    out = args.outfile_base
+    for suf in (".gz", ".fasta"):
+        if out.endswith(suf):
+            out = out[:-len(suf)]
+    csq = [float(x) for x in args.count_slice_quantiles.split()]
+    if csq != [0.0, 1.0]:
+        # abundance-binned output (clean.cpp:196-291): per quantile pair,
+        # count thresholds from the cleaned nodes' counts, one FASTA per
+        # slice named <out>.<qa>.<qb>.fasta.gz
+        if not has_weights:
+            raise SystemExit("clean: --count-slice-quantiles needs k-mer "
+                             "counts")
+        if not all(a < b for a, b in zip(csq, csq[1:])):
+            raise SystemExit("clean: quantiles must increase")
+        kept_nodes = np.concatenate(paths) if paths else \
+            np.zeros(0, np.int64)
+        counts_kept = np.sort(node_w_h[kept_nodes])
+
+        def quantile(q):
+            return _count_quantile(counts_kept, q) if len(counts_kept) else 1
+
+        for qa, qb in zip(csq, csq[1:]):
+            min_c = quantile(qa) if qa > 0 else 1
+            max_c = quantile(qb) if qb < 1 else (1 << 62)
+            log(f"k-mer count thresholds: min (including): {min_c} "
+                f"max (excluding): {max_c}")
+            m2 = np.zeros(g.num_nodes() + 1, bool)
+            m2[kept_nodes] = (node_w_h[kept_nodes] >= min_c) \
+                & (node_w_h[kept_nodes] < max_c)
+            sseqs = contig_sequences(MaskedDbg(base=g, mask=m2))
+            fb = f"{out}.{qa:g}.{qb:g}"
+            with FastaWriter(fb + ".fasta.gz", header=args.header) as w:
+                for s in sseqs:
+                    w.write(s)
+            log(f"Slice [{qa:g}, {qb:g}): {len(sseqs)} sequences "
+                f"-> {fb}.fasta.gz")
+        return
+    if has_weights:
+        with ExtendedFastaWriter(out, g.k, header=args.header) as w:
+            for s, p in zip(seqs, paths):
+                counts = node_w_h[p]
+                if args.smoothing_window > 1:
+                    counts = _smooth_counts(counts, args.smoothing_window)
+                w.write(s, counts)
+    else:
+        with FastaWriter(out + ".fasta.gz", header=args.header) as w:
+            for s in seqs:
+                w.write(s)
+    kept = int(mask[1:].sum()) if mask is not None else g.num_nodes()
+    log(f"Cleaned graph: kept {kept}/{g.num_nodes()} nodes, "
+        f"{len(seqs)} sequences -> {out}.fasta.gz")
+
+
+def _smooth_counts(counts, window: int):
+    """Sliding-window mean smoothing (utils::smooth_vector)."""
+    c = np.asarray(counts, np.float64)
+    half = window // 2
+    cum = np.concatenate([[0], np.cumsum(c)])
+    n = len(c)
+    lo = np.maximum(np.arange(n) - half, 0)
+    hi = np.minimum(np.arange(n) + half + 1, n)
+    return ((cum[hi] - cum[lo]) / (hi - lo)).astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# GFA output
+# ---------------------------------------------------------------------------
+
+def _write_gfa(g, path, compacted: bool = True):
+    """GFA as the reference's assemble.cpp:118-155 writes it: compacted
+    segments are whole unitigs named by their last node id, with one L
+    line per incoming edge of each unitig's first node; non-compacted
+    writes every node as a segment, plus the links inside unitigs."""
+    import torch
+    from ..graph.traversal import unitig_decomposition, unitig_sequences
+    u = unitig_decomposition(g)
+    seqs, paths = unitig_sequences(g, u, return_paths=True)
+    k = g.k
+    overlap = k - 1
+    starts = np.array([p[0] for p in paths], np.int64)
+    preds = g.predecessors(torch.from_numpy(starts).to(g.device)).cpu() \
+        .numpy() if len(starts) else np.zeros((0, 0), np.int64)
+    lines = ["H\tVN:Z:1.0\n"]
+    for s, p, pr in zip(seqs, paths, preds):
+        links = "".join(f"L\t{v}\t+\t{p[0] if not compacted else p[-1]}"
+                        f"\t+\t{overlap}M\n" for v in pr if v > 0)
+        if compacted:
+            lines.append(f"S\t{p[-1]}\t{s.decode()}\n" + links)
+            continue
+        text = s.decode()
+        lines.extend(f"S\t{v}\t{text[i:i + k]}\n" + (
+            f"L\t{p[i - 1]}\t+\t{v}\t+\t{overlap}M\n" if i else "")
+            for i, v in enumerate(p))
+        lines.append(links)
+    with open(path, "w") as fh:
+        fh.write("".join(lines))
+
+
+def _align_gfa_paths(g, args):
+    """<base>.path.gfa with one P line per input read (align.cpp
+    sequence_to_gfa_path + gfa_map_files): the read's nodes, or with
+    --compacted only those that end a unitig, the last one walked forward
+    to the end of its unitig. Inside a unitig every node's first
+    successor is the next node of its chain, so the JAX CLI's walk (one
+    successor lookup a step) ends at the chain's last node: one gather
+    here."""
+    from ..graph.traversal import unitig_decomposition, unitig_ends
+    from ..seqio.fasta import parse_records
+    u = unitig_decomposition(g)
+    ends = unitig_ends(g, u)
+    end_of = ends[u.chain_id].cpu().numpy()
+    end_of[0] = 0                 # an absent k-mer has no successor
+    is_end = np.zeros(len(end_of), bool)
+    is_end[ends.cpu().numpy()] = True
+    base = args.outfile_base
+    for suf in (".gfa", ".path"):
+        if base.endswith(suf):
+            base = base[:-len(suf)]
+    k = g.k
+    with open(base + ".path.gfa", "w") as f:
+        seq_id = 0
+        for fn in args.fnames:
+            for rec in parse_records(fn):
+                seq_id += 1
+                path = g.map_to_nodes(rec.seq)
+                head, last = path[:-1], int(path[-1])
+                if args.compacted:
+                    head = head[is_end[head]]
+                    last = int(end_of[last])
+                nodes_str = [f"{v}+" for v in head.tolist()] + [f"{last}+"]
+                f.write(f"P\t{seq_id}\t{','.join(nodes_str)}\t"
+                        f"{','.join([f'{k - 1}M'] * len(head))}\n")
+
+
+# ---------------------------------------------------------------------------
+# graph operations: extend, merge, compare, transform
+# ---------------------------------------------------------------------------
+
+def _real_edges(g, weighted: bool):
+    """The real edge k-mers of a fast-state graph, compacted by the
+    partition kernel, with their weights (ones when not ``weighted``):
+    ((L, n) lanes, (n,) int32 counts)."""
+    import torch
+    from ..common import merge as pmerge
+    from ..kmer import packing
+    lanes = g.boss.edge_lanes
+    if lanes is None:
+        raise SystemExit("a small-state graph has no edge k-mers to "
+                         "rebuild from (transform --state fast needs a "
+                         "rebuild as well)")
+    real = ~packing.contains_sentinel(lanes, g.k, g.alphabet.bits_per_char)
+    # weights are (m,) with slot 0 the sentinel row; edge_lanes (L, m - 1)
+    w = (g.boss.weights[1:].to(torch.int32) if weighted else
+         torch.ones((lanes.shape[1],), dtype=torch.int32,
+                    device=lanes.device))
+    comp, cnt, (wc,) = pmerge.partition_compact(lanes, real, lanes.shape[1],
+                                                w)
+    n = int(cnt)
+    return comp[:, :n], wc[:n]
+
+
+def _rebuild(lanes_parts, count_parts, k: int, alphabet, **kw):
+    """Sort-unique the union of k-mer sets (counts summed), then build."""
+    import torch
+    from ..graph.boss_construct import (_sort_unique_stage,
+                                        build_boss_from_kmers)
+    merged = torch.cat(lanes_parts, dim=1)
+    counts = torch.cat(count_parts)
+    u, uc, n_u = _sort_unique_stage(merged, counts, merged.shape[1])
+    n_u = int(n_u)
+    return build_boss_from_kmers(u, uc, n_u, k, alphabet, **kw), n_u
+
+
+def cmd_extend(args):
+    """Add sequences to a graph (reference cli/augment.cpp) by a static
+    rebuild of the union of the k-mer sets."""
+    from ..graph import io as graph_io
+    from ..graph.boss_construct import collect_kmers
+    from ..graph.dbg_succinct import DbgSuccinct
+    from ..seqio.fasta import parse_records
+
+    g = _load_graph(args.infile_base, args.device, wrap_primary=False)
+    weighted = g.boss.weights is not None
+    old, old_w = _real_edges(g, weighted)
+    new, new_c, n_new, _ = collect_kmers(
+        [r.seq for f in args.fnames for r in parse_records(f)], g.k,
+        g.alphabet,
+        canonical=g.mode in ("canonical", "primary"), device=args.device,
+        with_bounds=False)
+    boss, n_u = _rebuild(
+        [old, new[:, :n_new]], [old_w, new_c[:n_new]], g.k, g.alphabet,
+        mode="canonical" if g.mode == "canonical" else "basic",
+        bits_per_count=args.count_width if weighted else 0)
+    out = graph_io.save_graph(args.outfile_base or args.infile_base,
+                              DbgSuccinct.from_boss(boss, g.alphabet, g.mode))
+    log(f"Extended graph -> {out} ({n_u} k-mers)")
+
+
+def _boss(g, what: str):
+    """The BOSS table of a graph. The JAX CLI loads the graphs of merge
+    and compare wrapped, and a primary graph's wrapper has none
+    (AttributeError in metagraph_tpu/cli/main.py cmd_merge, cmd_compare):
+    a fault of the reference, matched by a non-zero exit."""
+    if not hasattr(g, "boss"):
+        raise SystemExit(f"{what}: primary graphs fail in the reference "
+                         f"(CanonicalDbg has no BOSS table)")
+    return g.boss
+
+
+def cmd_merge(args):
+    """The union of graphs' real edge k-mers, rebuilt in memory; weighted
+    inputs sum their counts per k-mer, widened to 31 bits."""
+    from ..graph import io as graph_io
+    from ..graph.dbg_succinct import DbgSuccinct
+
+    if args.num_shards > 1:
+        raise SystemExit("merge: --num-shards > 1 (the streaming out-of-core "
+                         "merge) is not yet ported: ROADMAP queue 1 item 8")
+    graphs = [_load_graph(f, args.device) for f in args.fnames]
+    weighted = all(_boss(g, "merge").weights is not None for g in graphs)
+    parts = [_real_edges(g, weighted) for g in graphs]
+    g0 = graphs[0]
+    boss, _ = _rebuild([p[0] for p in parts], [p[1] for p in parts], g0.k,
+                       g0.alphabet, bits_per_count=31 if weighted else 0)
+    out = graph_io.save_graph(args.outfile_base,
+                              DbgSuccinct.from_boss(boss, g0.alphabet,
+                                                    g0.mode))
+    log(f"Merged {len(graphs)} graphs -> {out}")
+
+
+def cmd_compare(args):
+    """Equal k, node count, W and last (the JAX CLI's check)."""
+    import torch
+    g1, g2 = (_load_graph(f, args.device) for f in args.fnames)
+    same = (g1.k == g2.k and g1.num_nodes() == g2.num_nodes()
+            and torch.equal(_boss(g1, "compare").W.cpu(),
+                            _boss(g2, "compare").W.cpu())
+            and np.array_equal(g1.boss.last_rank.bits_host(),
+                               g2.boss.last_rank.bits_host()))
+    print("Graphs are identical" if same else "Graphs are not identical")
+
+
+def cmd_transform(args):
+    from ..graph.traversal import contig_sequences
+    g = _load_graph(args.infile_base or args.fnames[0], args.device,
+                    wrap_primary=False)
+    if args.initialize_bloom:
+        # batched membership has uniform hit / miss cost: the Bloom
+        # prefilter flags are accepted and do nothing
+        log("Bloom filter subsumed by batched membership; nothing to do")
+        return
+    if args.state:
+        # BOSS state switching: small drops the edge k-mers
+        from ..graph import io as graph_io
+        if args.state == "fast" and g.boss.edge_lanes is None:
+            log("small -> fast state restore is not supported yet; rebuild")
+            sys.exit(1)
+        out = graph_io.save_graph(args.outfile_base, g, state=args.state)
+        log(f"Serialized {args.state}-state graph to {out}")
+        return
+    if args.to_fasta:
+        from ..seqio.fasta import FastaWriter
+        if args.primary_kmers:
+            # one orientation per rc pair: contigs of the graph masked to
+            # the smaller packed form
+            from ..graph.masked import MaskedDbg
+            from ..graph.traversal import single_form_mask
+            g = MaskedDbg(base=g, mask=single_form_mask(g))
+        out = args.outfile_base
+        if not out.endswith(".fasta.gz"):
+            out = out + ".fasta.gz"
+        with FastaWriter(out) as w:
+            for s in contig_sequences(g):
+                w.write(s)
+        log(f"Wrote contigs to {out}")
+    elif args.to_gfa:
+        _write_gfa(g, args.outfile_base + ".gfa", compacted=args.compacted)
+        log(f"Wrote GFA to {args.outfile_base}.gfa")
+    elif args.to_adj_list:
+        import torch
+        from ..graph.traversal import in_chunks
+        succ = in_chunks(g.successors, torch.arange(
+            1, g.num_nodes() + 1, device=g.device)).cpu().numpy()
+        with open(args.outfile_base + ".adjlist", "w") as fh:
+            fh.write("".join(
+                f"{i}\t" + " ".join(str(t) for t in row if t > 0) + "\n"
+                for i, row in enumerate(succ.tolist(), start=1)))
+        log(f"Wrote adjacency list to {args.outfile_base}.adjlist")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -738,6 +1164,81 @@ def build_parser() -> argparse.ArgumentParser:
                     dest="num_alternative_paths", type=int, default=1)
     sp.add_argument("--json", action="store_true")
     sp.add_argument("fnames", nargs="+")
+
+    sp = add("assemble", cmd_assemble)
+    sp.add_argument("-i", "--infile-base", default=None)
+    sp.add_argument("fnames", nargs="*")
+    sp.add_argument("--enumerate", action="store_true",
+                    help="number output sequences (always on here)")
+    sp.add_argument("-o", "--outfile-base", default="graph")
+    sp.add_argument("--unitigs", action="store_true")
+    sp.add_argument("--to-gfa", action="store_true")
+    sp.add_argument("--compacted", action="store_true")
+    sp.add_argument("--min-length", type=int, default=0)
+    sp.add_argument("-a", "--annotation", default=None)
+    sp.add_argument("--label-mask-in", action="append")
+    sp.add_argument("--label-mask-out", action="append")
+    sp.add_argument("--label-mask-in-fraction", type=float, default=1.0)
+    sp.add_argument("--label-mask-out-fraction", type=float, default=0.0)
+    sp.add_argument("--label-other-fraction", type=float, default=1.0)
+
+    sp = add("clean", cmd_clean)
+    sp.add_argument("-i", "--infile-base", default=None)
+    sp.add_argument("fnames", nargs="*")
+    sp.add_argument("-o", "--outfile-base", default="graph")
+    sp.add_argument("--min-count", type=int, default=1)
+    sp.add_argument("--max-count", type=int, default=None)
+    sp.add_argument("--min-count-q", type=float, default=0.0,
+                    help="min k-mer abundance quantile")
+    sp.add_argument("--max-count-q", type=float, default=1.0,
+                    help="max k-mer abundance quantile")
+    sp.add_argument("--min-count-auto", action="store_true")
+    sp.add_argument("--prune-tips", type=int, default=1)
+    sp.add_argument("--prune-unitigs", type=int, default=1)
+    sp.add_argument("--fallback", type=int, default=5)
+    sp.add_argument("--num-singletons", type=int, default=0,
+                    help="override the count-1 bin of the abundance "
+                         "histogram for threshold estimation")
+    sp.add_argument("--smoothing-window", type=int, default=1)
+    sp.add_argument("--count-slice-quantiles", "--count-bins-q",
+                    dest="count_slice_quantiles", default="0 1",
+                    help="space-separated quantiles; one fasta per "
+                         "adjacent pair, binned by k-mer count")
+    sp.add_argument("--to-fasta", action="store_true")
+    sp.add_argument("--unitigs", action="store_true")
+    sp.add_argument("--header", default="",
+                    help="prefix for the output sequence headers")
+
+    sp = add("extend", cmd_extend)
+    sp.add_argument("-i", "--infile-base", required=True)
+    sp.add_argument("-o", "--outfile-base", default=None)
+    sp.add_argument("--count-width", type=int, default=8)
+    sp.add_argument("fnames", nargs="+")
+
+    sp = add("compare", cmd_compare)
+    sp.add_argument("fnames", nargs=2)
+
+    sp = add("transform", cmd_transform)
+    sp.add_argument("-i", "--infile-base", default=None)
+    sp.add_argument("fnames", nargs="*")
+    sp.add_argument("--enumerate", action="store_true",
+                    help="number output sequences (always on here)")
+    sp.add_argument("-o", "--outfile-base", default="graph")
+    sp.add_argument("--to-fasta", action="store_true")
+    sp.add_argument("--primary-kmers", action="store_true")
+    sp.add_argument("--to-gfa", action="store_true")
+    sp.add_argument("--compacted", action="store_true")
+    sp.add_argument("--to-adj-list", action="store_true")
+    sp.add_argument("--state", choices=["fast", "small"], default=None)
+    sp.add_argument("--initialize-bloom", action="store_true")
+    sp.add_argument("--bloom-fpp", type=float, default=None)
+
+    sp = add("merge", cmd_merge)
+    sp.add_argument("-o", "--outfile-base", default="graph")
+    sp.add_argument("fnames", nargs="+")
+    sp.add_argument("--num-shards", type=int, default=0,
+                    help="the streaming out-of-core merge (not yet ported)")
+    sp.add_argument("--state", choices=["fast", "small"], default="fast")
     return p
 
 

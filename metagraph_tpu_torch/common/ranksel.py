@@ -129,6 +129,14 @@ class BitRank:
         bits = np.unpackbits(w.view(np.uint8), bitorder="little")
         return bits[:self.n].astype(bool)
 
+    def set_positions(self) -> torch.Tensor:
+        """Sorted positions of the set bits, (num_set,) int64 on the
+        words' device."""
+        shifts = torch.arange(32, device=self.words.device)
+        bits = ((packed.as_uint(self.words)[:, None] >> shifts) & 1).to(
+            torch.bool).reshape(-1)[:self.n]
+        return torch.nonzero(bits).squeeze(1)
+
 
 def _match_bits(words: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """0x80 bit per byte of ``words`` (int64 < 2^32) equal to symbol

@@ -119,13 +119,15 @@ class CanonicalDbg:
 
     # -- decoding and annotation rows --------------------------------------
 
+    def node_chars(self, nodes: torch.Tensor) -> torch.Tensor:
+        """(N, k) uint8 char codes of the virtual nodes, on the device."""
+        return packing.unpack_to_chars(self.node_lanes(nodes), self.k,
+                                       self.alphabet.bits_per_char)
+
     def node_kmers_chars(self, nodes) -> np.ndarray:
-        """(N, k) uint8 char codes of the virtual nodes, on the host."""
-        nodes = torch.as_tensor(np.asarray(nodes, np.int64),
-                                device=self.device)
-        return packing.unpack_to_chars(
-            self.node_lanes(nodes), self.k,
-            self.alphabet.bits_per_char).cpu().numpy()
+        """``node_chars`` on the host."""
+        return self.node_chars(torch.as_tensor(
+            np.asarray(nodes, np.int64), device=self.device)).cpu().numpy()
 
     def node_sequence(self, node: int) -> str:
         return self.alphabet.decode(self.node_kmers_chars([node])[0])

@@ -361,17 +361,19 @@ class DbgSuccinct:
 
     # -- node decoding -----------------------------------------------------
 
-    def node_kmers_chars(self, nodes) -> np.ndarray:
-        """(N, k) char codes of the node k-mers, on the host: uint8 from
-        the packed k-mers, int32 from the small state's bwd walk (as the
-        JAX package gives them)."""
-        nodes = torch.as_tensor(np.asarray(nodes, np.int64), device=self.device)
+    def node_chars(self, nodes: torch.Tensor) -> torch.Tensor:
+        """(N, k) char codes of the node k-mers, on the graph's device:
+        uint8 from the packed k-mers, int32 from the small state's bwd
+        walk."""
         if self.boss.edge_lanes is None:
-            return self.boss.node_chars_ranksel(
-                self.node_to_edge(nodes)).cpu().numpy()
-        lanes = self.node_lanes(nodes)
-        return packing.unpack_to_chars(
-            lanes, self.k, self.alphabet.bits_per_char).cpu().numpy()
+            return self.boss.node_chars_ranksel(self.node_to_edge(nodes))
+        return packing.unpack_to_chars(self.node_lanes(nodes), self.k,
+                                       self.alphabet.bits_per_char)
+
+    def node_kmers_chars(self, nodes) -> np.ndarray:
+        """``node_chars`` on the host (the dtypes the JAX package gives)."""
+        return self.node_chars(torch.as_tensor(
+            np.asarray(nodes, np.int64), device=self.device)).cpu().numpy()
 
     def node_sequence(self, node: int) -> str:
         return self.alphabet.decode(self.node_kmers_chars([node])[0])

@@ -151,6 +151,11 @@ class BatchFeeder:
             yield item
 
 
+# zlib's default level: level 9 (gzip's) takes ~6x as long on sequence
+# text for ~2.5 % smaller files; the decompressed bytes are the same
+GZIP_LEVEL = 6
+
+
 class FastaWriter:
     """Plain or gzipped FASTA writer (reference FastaWriter)."""
 
@@ -159,7 +164,8 @@ class FastaWriter:
                  gzip_out: Optional[bool] = None, width: int = 80):
         if gzip_out is None:
             gzip_out = path.endswith(".gz")
-        self._f = gzip.open(path, "wb") if gzip_out else open(path, "wb")
+        self._f = (gzip.open(path, "wb", compresslevel=GZIP_LEVEL)
+                   if gzip_out else open(path, "wb"))
         self._header = header
         self._count = 0
         self._enumerate = enumerate_sequences
@@ -172,9 +178,9 @@ class FastaWriter:
         if name is None:
             name = (f"{self._header}{self._count}" if self._enumerate
                     else self._header)
-        self._f.write(b">" + name.encode() + b"\n")
-        for i in range(0, len(seq), self._width):
-            self._f.write(seq[i:i + self._width] + b"\n")
+        w = self._width
+        self._f.write(b">" + name.encode() + b"\n" + b"".join(
+            seq[i:i + w] + b"\n" for i in range(0, len(seq), w)))
 
     def close(self):
         self._f.close()
@@ -198,7 +204,8 @@ class ExtendedFastaWriter(FastaWriter):
                 base = base[:-len(suf)]
         super().__init__(base + ".fasta.gz", header, enumerate_sequences)
         self.k = k
-        self._cf = gzip.open(base + ".kmer_counts.gz", "wb")
+        self._cf = gzip.open(base + ".kmer_counts.gz", "wb",
+                             compresslevel=GZIP_LEVEL)
 
     def write(self, seq, counts=None, name: Optional[str] = None):
         super().write(seq, name)

@@ -322,8 +322,8 @@ def test_query_align_identical(fasta, capsys, mode):
 
 
 @pytest.mark.parametrize("argv", [
-    ["assemble", "-i", "g"],
-    ["align", "-i", "g", "-o", "paths.gfa", "q.fa"],
+    ["concatenate", "-o", "g", "-i", "chunks"],
+    ["merge", "--num-shards", "2", "-o", "m", "g1", "g2"],
     ["build", "-k", "11", "--suffix", "A", "x.fa"],
     ["build", "-k", "11", "--suffix-len", "2", "x.fa"],
     ["query", "-i", "g", "-a", "a", "--query-coords", "q.fa"],

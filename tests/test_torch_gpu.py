@@ -672,3 +672,46 @@ def test_small_state_cuda_equals_cpu(dev, tmp_path):
     for gs_, ws in zip(got, want):
         assert [(a.score, a.cigar, a.sequence) for a in gs_] == \
             [(b.score, b.cigar, b.sequence) for b in ws]
+
+
+@pytest.mark.parametrize("mode", ["basic", "canonical", "primary"])
+def test_traversal_cuda_equals_cpu(dev, mode, tmp_path):
+    """Unitig decomposition, unitigs and contigs of a 2^16-code graph
+    with read breaks and repeats on the card equal the CPU port's, also
+    on a masked graph and under clean_node_mask."""
+    from metagraph_tpu_torch.graph import io as graph_io
+    from metagraph_tpu_torch.graph import traversal as tt
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.canonical import CanonicalDbg
+    from metagraph_tpu_torch.graph.cleaning import clean_node_mask
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    from metagraph_tpu_torch.graph.masked import MaskedDbg
+    rng = np.random.default_rng(40)
+    codes = rng.integers(1, 5, 1 << 16).astype(np.uint8)
+    codes[rng.integers(0, len(codes), 100)] = 255
+    rep = codes[1000:1400].copy()
+    for at in (9000, 30000, 51000):                  # branches
+        codes[at:at + 400] = rep
+    g = DbgSuccinct.from_boss(build_boss_from_codes(
+        codes, 15, mode=mode, bits_per_count=8, device="cpu"),
+        mode=mode)
+    p = graph_io.save_graph(str(tmp_path / "g"), g)
+    gs = [graph_io.load_graph(p, device=d) for d in (dev, "cpu")]
+    if mode == "primary":
+        gs = [CanonicalDbg(base=x) for x in gs]
+    got, want = (tt.unitig_decomposition(x) for x in gs)
+    for f in ("chain_id", "pos", "starts", "lengths", "is_cycle"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    a, b = (tt.contig_sequences(x, return_paths=True) for x in gs)
+    assert a[0] == b[0] and len(a[1]) == len(b[1])
+    assert all(np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+    assert tt.unitig_sequences(gs[0]) == tt.unitig_sequences(gs[1])
+    mask = rng.random(gs[1].num_nodes() + 1) < 0.6
+    ms = [MaskedDbg(base=x, mask=mask) for x in gs]
+    assert tt.contig_sequences(ms[0]) == tt.contig_sequences(ms[1])
+    if mode != "primary":
+        assert torch.equal(tt.single_form_mask(gs[0]).cpu(),
+                           tt.single_form_mask(gs[1]))
+        got, want = (clean_node_mask(x, min_count=2, prune_unitigs=3,
+                                     min_tip_size=30) for x in gs)
+        assert torch.equal(got.cpu(), want)
