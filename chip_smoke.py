@@ -91,6 +91,21 @@ Phases (each raises on failure; the process exits non-zero):
         the first 2^21 codes: merge equals the whole build (weights =
         numpy gold), basic extend too; canonical extend equals the CPU
         run on 2^16 codes (the reference's duplicates).
+     h. annotation compression and coordinates, on 3a's k = 20 graph
+        (33.5 M rows): its label_{i % 10} annotation to row_diff,
+        row_diff_brwt, brwt relaxed to arity 8, unique_row and rb_brwt;
+        3e's count annotation to int_row_diff, int_brwt and
+        row_diff_int_brwt; the records as rec_{i} (1000 columns) to brwt
+        (a linkage product over 10^6 sampled rows); the label_{i % 10}
+        coordinates (annotate_coordinates) as column_coord and
+        row_diff_coord. Per form: transform seconds, stored nnz against
+        the column's, file bytes, query reads/s against the column form's
+        (2^15 reads for row_diff and row_diff_brwt, 2^13 for the rest)
+        and peak device memory. Checks: each form answers as its column
+        form read for read (labels; --query-counts and quantiles;
+        coordinates, which equal a numpy gold), the row-diff builds
+        launch sort_packed and partition_compact, and at a 2^18-code
+        prefix every form built on the card equals the CPU build.
   4. the CLI (build, stats and align in processes of their own, the
      rest through its main in this process): build, annotate, query,
      query --align, align (TSV and --json) and stats with --device
@@ -103,7 +118,10 @@ Phases (each raises on failure; the process exits non-zero):
      --align on the primary graph; then build --alphabet Protein / DNA5
      --mode canonical / DNACaseSent --mode primary with stats, annotate,
      query and align, and build --state small, whose stats --print,
-     query and align equal the fast graph's.
+     query and align equal the fast graph's; then the annotation
+     commands on the canonical graph: transform_anno to seven forms,
+     relax_brwt, merge_anno, coordinate, query over each (labels,
+     --query-counts, --query-coords) and stats.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -854,8 +872,8 @@ def phase_main_path(dev):
             and np.array_equal(cp, hp)):
         raise AssertionError("CUDA label counts differ from CPU counts")
     log("query: CUDA label counts equal CPU counts on 512 reads")
-    surface = surface_query_modes(graph, records, labels, reads, which,
-                                  cpu.graph)
+    surface, cnt_ann = surface_query_modes(graph, records, labels, reads,
+                                           which, cpu.graph)
     del cpu
     torch.cuda.empty_cache()
     surface["validate"] = surface_validate(graph, real)
@@ -873,6 +891,9 @@ def phase_main_path(dev):
                        "phase 3g on the k=20 graph")
         log(f"3g launch counts on the k=20 graph's paths: "
             f"{surface['graph launches']}")
+        surface["anno launches"], surface["anno"] = phase_anno(
+            graph, ann, cnt_ann, codes, records, labels, reads, tmp)
+        del cnt_ann
     align_launches = (align_launches, align_rates)
     del graph, boss, ann, bq
     torch.cuda.empty_cache()
@@ -1454,6 +1475,318 @@ def phase_graph(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: annotation compression and coordinates
+# ---------------------------------------------------------------------------
+
+ANNO_SMALL_READS = 1 << 13
+# the forms whose builds sort their diff keys and compact the survivors
+ROW_DIFF_FORMS = ("row_diff", "row_diff_brwt", "int_row_diff",
+                  "row_diff_int_brwt", "row_diff_coord")
+
+
+def anno_forms(row_diff, brwt, int_brwt, unique_row, coords, graph):
+    """3h's conversions, each a function of the source matrix (the
+    functions transform_anno calls), grouped by source annotation."""
+    UniqueRow = unique_row.UniqueRow
+    return {
+        "labels": {
+            "row_diff": lambda m: row_diff.build_row_diff(m, graph, 64),
+            "row_diff_brwt": lambda m: row_diff.build_row_diff_brwt(
+                m, graph, 64),
+            "brwt_relax8": lambda m: brwt.relax_brwt(brwt.build_brwt(m), 8),
+            "unique_row": UniqueRow.from_row_sparse,
+            "rb_brwt": lambda m: UniqueRow.from_row_sparse(m)
+            .with_brwt_distinct()},
+        "counts": {
+            "int_row_diff": lambda m: row_diff.build_int_row_diff(m, graph,
+                                                                  64),
+            "int_brwt": int_brwt.build_int_brwt,
+            "row_diff_int_brwt": lambda m: int_brwt.build_int_row_diff_brwt(
+                m, graph, 64)},
+        "records": {"brwt": brwt.build_brwt},
+        "coords": {
+            "column_coord": lambda m: m,
+            "row_diff_coord": lambda m: coords.build_tuple_row_diff(
+                m, graph, 64)},
+    }
+
+
+def anno_queries(bq_of, name):
+    """The query a form's 3h row times and checks: labels, --query-counts
+    and quantiles for the count forms, --query-coords for the
+    coordinates."""
+    if name == "counts":
+        return lambda a, rs: (
+            bq_of(a).get_top_labels_batch(rs, 2 ** 62, 0.7,
+                                          with_kmer_counts=True),
+            bq_of(a).get_label_count_quantiles_batch(rs, 2 ** 62, 0.7,
+                                                     (0.0, 0.5, 1.0)))
+    if name == "coords":
+        return lambda a, rs: bq_of(a).get_kmer_coordinates_batch(
+            rs, 2 ** 62, 0.7)
+    return lambda a, rs: bq_of(a).get_labels_batch(rs, 0.7)
+
+
+def coord_gold(codes, K, n_rec, reads, ratio=0.7):
+    """numpy gold of ``get_kmer_coordinates_batch`` over the annotation of
+    ``split_records(codes, n_rec)`` labelled ``label_{i % 10}``: a
+    window's coordinate in a label is its offset in the label's records'
+    windows, one record after the other. Per read (all of one length),
+    the labels in at least ceil(ratio * windows) of its windows by (count
+    desc, code asc), each with one ascending coordinate list per
+    window."""
+    bounds = np.linspace(0, len(codes), n_rec + 1).astype(np.int64)
+    nwin = bounds[1:] - bounds[:-1] - K + 1
+    lab = np.arange(n_rec) % 10
+    off = np.zeros(n_rec, np.int64)
+    for label in range(10):
+        sel = np.nonzero(lab == label)[0]
+        off[sel] = np.concatenate([[0], np.cumsum(nwin[sel])[:-1]])
+    fwd = fwd_kmer_ints(codes, K)
+    pos = np.arange(len(fwd))
+    r_of = np.searchsorted(bounds, pos, side="right") - 1
+    inside = pos + K <= bounds[r_of + 1]
+    keys, r_in = fwd[inside], r_of[inside]
+    coord = off[r_in] + pos[inside] - bounds[r_in]
+    order = np.argsort(keys)
+    keys, lab_s, coord = keys[order], lab[r_in][order], coord[order]
+    # every window is a node: the records' and the few across boundaries
+    across = np.sort(fwd[~inside])
+    # every read's window k-mers at once: (R, W)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    c = np.searchsorted(acgt, np.frombuffer(b"".join(reads), np.uint8)
+                        ).reshape(len(reads), -1).astype(np.uint64)
+    W = c.shape[1] - K + 1
+    q = np.zeros((len(reads), W), np.uint64)
+    for j in range(K):
+        q = (q << np.uint64(2)) | c[:, j:j + W]
+    lo = np.searchsorted(keys, q.ravel(), side="left")
+    hi = np.searchsorted(keys, q.ravel(), side="right")
+    n_occ = hi - lo
+    at = np.minimum(np.searchsorted(across, q.ravel()), len(across) - 1)
+    n_present = ((n_occ > 0) | (across[at] == q.ravel())).reshape(
+        q.shape).sum(axis=1)
+    flat = np.repeat(lo - np.cumsum(n_occ) + n_occ, n_occ) + np.arange(
+        n_occ.sum())
+    win = np.repeat(np.arange(q.size), n_occ)            # read * W + w
+    r_id, w_id, lb, cd = win // W, win % W, lab_s[flat], coord[flat]
+    # windows per (read, label) holding the label
+    pair = np.unique(r_id * 10 * W + lb * W + w_id)
+    counts = np.bincount(pair // W, minlength=len(reads) * 10).reshape(
+        len(reads), 10)
+    min_count = max(1, int(np.ceil(ratio * W)))
+    by_read = np.argsort(r_id * 10 + lb, kind="stable")
+    out = []
+    starts = np.searchsorted(r_id[by_read] * 10 + lb[by_read],
+                             np.arange(len(reads) * 10 + 1))
+    for r in range(len(reads)):
+        if n_present[r] < min_count:
+            out.append([])
+            continue
+        keep = sorted((lb_ for lb_ in range(10)
+                       if counts[r, lb_] >= min_count),
+                      key=lambda lb_: (-counts[r, lb_], lb_))
+        res = []
+        for lb_ in keep:
+            lists = [[] for _ in range(W)]
+            sel = by_read[starts[r * 10 + lb_]:starts[r * 10 + lb_ + 1]]
+            for w, x in zip(w_id[sel].tolist(), cd[sel].tolist()):
+                lists[w].append(x)
+            res.append((f"label_{lb_}", [sorted(x) for x in lists]))
+        out.append(res)
+    return out
+
+
+def anno_cpu_parity(codes, dev):
+    """3h. Every form of the annotations of a 2^18-code prefix's k = 20
+    basic graph (100 records: label_{i % 10}, their counts, rec_{i},
+    coordinates) built on the card has the CPU build's arrays."""
+    from metagraph_tpu_torch.anno import brwt, coords, int_brwt, row_diff
+    from metagraph_tpu_torch.anno import unique_row
+    from metagraph_tpu_torch.engine.annotated_dbg import annotate_sequences
+    from metagraph_tpu_torch.graph import io as graph_io
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    prefix = codes[:1 << 18]
+    g = DbgSuccinct.from_boss(build_boss_from_codes(prefix, 20, device=dev))
+    graphs = (g, graph_io.dbg_from_numpy(graph_io.graph_to_numpy(g), "cpu"))
+    recs = split_records(prefix, 100)
+    sources = {
+        "labels": lambda x: annotate_sequences(
+            x, [(s, [f"label_{i % 10}"]) for i, s in enumerate(recs)]),
+        "counts": lambda x: annotate_sequences(
+            x, [(s, [f"label_{i % 10}"]) for i, s in enumerate(recs)],
+            with_counts=True),
+        "records": lambda x: annotate_sequences(
+            x, [(s, [f"rec_{i}"]) for i, s in enumerate(recs)]),
+        "coords": lambda x: coords.annotate_coordinates(
+            x, [(s, [f"label_{i % 10}"]) for i, s in enumerate(recs)])}
+    n = 0
+    for src, make in sources.items():
+        mats = [make(x).finalize().matrix for x in graphs]
+        forms = [anno_forms(row_diff, brwt, int_brwt, unique_row, coords,
+                            x)[src] for x in graphs]
+        for name in forms[0]:
+            got, want = (f[name](m).to_npz_dict()
+                         for f, m in zip(forms, mats))
+            if sorted(got) != sorted(want) or any(
+                    got[k].dtype != want[k].dtype
+                    or not np.array_equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"3h {src} {name}: the card's build "
+                                     f"differs from the CPU's at 2^18 codes")
+            n += 1
+    log(f"3h: all {n} forms built on the card equal the CPU builds array "
+        f"for array at a 2^18-code prefix (k = 20, 100 records)")
+
+
+def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
+    """3h. Phase 3a's k = 20 graph (2^25 codes) and its annotations of the
+    1000 records: label_{i % 10} (3a's), their k-mer counts (3e's),
+    rec_{i} and the label_{i % 10} coordinates (annotated here). Each
+    form is converted on the card (time, stored nnz against the column's,
+    file bytes, query reads/s against the column form's, peak device
+    memory) and checked: labels equal the column's read for read; the
+    count forms' --query-counts and quantiles the count annotation's;
+    coordinates a numpy gold; the row-diff builds launch sort_packed and
+    partition_compact. Returns the launch counts of the conversions and
+    queries, and the per-form rows."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from metagraph_tpu_torch.anno import brwt, coords, int_brwt, row_diff
+    from metagraph_tpu_torch.anno import unique_row
+    from metagraph_tpu_torch.anno.annotator import Annotation
+    from metagraph_tpu_torch.engine.annotated_dbg import (
+        AnnotatedDbg, BatchQuery, annotate_sequences)
+
+    def bq_of(a):
+        return BatchQuery(AnnotatedDbg(graph=graph, annotation=a))
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    def peak_of(fn, *args):
+        """fn(*args) and the device memory it peaked at, in GiB (what was
+        allocated before it included)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args)
+        return out, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    t_phase = time.time()
+    zero_launches()
+    small = reads[:ANNO_SMALL_READS // 2] + reads[-ANNO_SMALL_READS // 2:]
+    pool = ThreadPoolExecutor(6)
+    sizes = {}
+
+    def save(name, a):
+        path = os.path.join(tmp, f"h.{name}.annodbg.npz")
+        sizes[name] = pool.submit(
+            lambda: (a.save(path), os.path.getsize(path))[1])
+
+    items = [(s, [lab]) for s, lab in zip(records, labels)]
+    rec_ann, t_rec = timed(lambda: annotate_sequences(
+        graph, [(s, [f"rec_{i}"]) for i, s in enumerate(records)])
+        .finalize())
+    crd_ann, t_crd = timed(lambda: coords.annotate_coordinates(
+        graph, items).finalize())
+    log(f"3h annotate: {len(records)} records as rec_i {t_rec:.2f} s "
+        f"({rec_ann.matrix.nnz} relations), with coordinates {t_crd:.2f} s "
+        f"({crd_ann.matrix.nnz} triples)")
+    sources = {"labels": ann, "counts": cnt_ann, "records": rec_ann,
+               "coords": crd_ann}
+    forms = anno_forms(row_diff, brwt, int_brwt, unique_row, coords, graph)
+    # the column files first: zlib of the largest runs beside the whole loop
+    for src, source in sources.items():
+        save(f"{src}.column", source)
+    rows, launches = [], read_launches()
+    for src, source in sources.items():
+        query = anno_queries(bq_of, src)
+        col_nnz = source.matrix.nnz
+        col_out = {}
+        for n_reads in ((len(reads), ANNO_SMALL_READS) if src == "labels"
+                        else (ANNO_SMALL_READS,)):
+            rs = reads if n_reads == len(reads) else small
+            query(source, rs[:256])
+            (col_out[n_reads], dt), col_out[n_reads, "peak"] = peak_of(
+                timed, query, source, rs)
+            col_out[n_reads, "rate"] = n_reads / dt
+        t_gold = time.time()
+        if src == "coords":
+            gold = coord_gold(codes, graph.k, len(records), small)
+            log(f"3h coordinates: the numpy gold of {len(small)} reads in "
+                f"{time.time() - t_gold:.1f} s (host)")
+            if col_out[ANNO_SMALL_READS] != gold:
+                bad = next(i for i, (a, b) in enumerate(
+                    zip(col_out[ANNO_SMALL_READS], gold)) if a != b)
+                raise AssertionError(f"3h coordinates: read {bad} differs "
+                                     f"from the numpy gold")
+        for name, fn in forms[src].items():
+            before = read_launches()
+            (m, secs), peak = peak_of(timed, fn, source.matrix)
+            built = launch_delta(before)
+            if name in ROW_DIFF_FORMS:
+                check_launched(built, ("sort_packed", "partition_compact"),
+                               f"the {name} build")
+            a = Annotation(matrix=m, encoder=source.encoder)
+            if m is source.matrix:      # column_coord: the column file
+                sizes[f"{src}.{name}"] = sizes[f"{src}.column"]
+            else:
+                save(f"{src}.{name}", a)
+            n_reads = (len(reads) if name in ("row_diff", "row_diff_brwt")
+                       else ANNO_SMALL_READS)
+            rs = reads if n_reads == len(reads) else small
+            query(a, rs[:256])
+            (got, dt), q_peak = peak_of(timed, query, a, rs)
+            if got != col_out[n_reads]:
+                bad = next(i for i, (x, y) in enumerate(
+                    zip(got, col_out[n_reads])) if x != y)
+                raise AssertionError(f"3h {src} {name}: read {bad} answers "
+                                     f"differently from the column form")
+            rows.append(dict(source=src, form=name, seconds=secs,
+                             nnz=m.nnz, col_nnz=col_nnz, reads=n_reads,
+                             rate=n_reads / dt,
+                             col_rate=col_out[n_reads, "rate"],
+                             peak_gib=peak, query_peak_gib=q_peak,
+                             col_query_peak_gib=col_out[n_reads, "peak"],
+                             build_launches=built))
+            del a, m
+    launches = launch_delta(launches)
+    t_wait = time.time()
+    for row in rows:
+        row["bytes"] = sizes[f"{row['source']}.{row['form']}"].result()
+        row["col_bytes"] = sizes[f"{row['source']}.column"].result()
+        log(f"3h {row['source']} -> {row['form']}: transform "
+            f"{row['seconds']:.3f} s; nnz {row['nnz']} = "
+            f"{row['nnz'] / max(row['col_nnz'], 1):.4f} of the column's "
+            f"{row['col_nnz']}; file {row['bytes']} B (column "
+            f"{row['col_bytes']}); query {row['rate']:.0f} reads/s over "
+            f"{row['reads']} reads (column {row['col_rate']:.0f}); peak "
+            f"{row['peak_gib']:.2f} GiB in the transform, "
+            f"{row['query_peak_gib']:.2f} GiB in the query (column "
+            f"{row['col_query_peak_gib']:.2f}); build launches "
+            f"{row['build_launches']}")
+    pool.shutdown()
+    log(f"3h files: the last written {time.time() - t_wait:.1f} s after the "
+        f"conversions (np.savez_compressed of {len(set(sizes.values()))} "
+        f"files in 6 threads)")
+    log("3h checks: every binary form's labels equal the column form's "
+        "read for read; the count forms' --query-counts and quantiles equal "
+        "the count annotation's; the coordinates of both coordinate forms "
+        f"equal the numpy gold on {ANNO_SMALL_READS} reads; the row-diff "
+        "builds launched sort_packed and partition_compact")
+    log(f"3h launch counts (conversions and queries): {launches}")
+    t_cpu = time.time()
+    anno_cpu_parity(codes, graph.device)
+    log(f"3h total {time.time() - t_phase:.1f} s (the CPU comparison "
+        f"{time.time() - t_cpu:.1f} s)")
+    return launches, rows
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the alignment path
 # ---------------------------------------------------------------------------
 
@@ -1575,7 +1908,8 @@ def phase_align(graph, bq, codes, rng):
 # phase 3f: the small state (no edge k-mers: rank/select searches only)
 # ---------------------------------------------------------------------------
 
-# 3b's first 2^12 reads (of 2^13): the small state aligns at ~450 reads/s
+# 3b's first 2^12 reads (of 2^13): the small state aligns at 250-530
+# reads/s
 SMALL_ALIGN_READS = 1 << 12
 
 
@@ -2028,7 +2362,7 @@ def surface_query_modes(graph, records, labels, reads, which, cpu_graph):
         log(f"3e query {name}: {len(reads)} reads of 100 bp in {dt:.3f} s = "
             f"{len(reads) / dt:.0f} reads/s; all {len(which)} sampled reads "
             f"report their record's label; CUDA equals CPU on 512 reads")
-    return rates
+    return rates, ann
 
 
 def surface_validate(graph, gold_real):
@@ -2534,6 +2868,58 @@ def cli_surface(tmp, names, seqs, gp, both_fa, device):
         f"labelled")
 
 
+def cli_anno(tmp, run, fa, names, seqs, g):
+    """Phase 4, the annotation commands through the CLI's main in this
+    process, on the canonical k = 31 graph of the records: transform_anno
+    of its record annotation to row_diff, row_diff_brwt, brwt, rb_brwt,
+    of a count annotation to int_row_diff and row_diff_int_brwt, and of
+    a coordinate one (coordinate --anno-header) to row_diff_coord;
+    relax_brwt and merge_anno. Each file's query (labels, --query-counts
+    or --query-coords) prints what its column form prints, every record's
+    coordinates are its window offsets, and stats names the form."""
+    col = g + ".column.annodbg.npz"
+    run("annotate", "-i", g, "-o", g + "_cnt", "--anno-header",
+        "--count-kmers", fa)
+    run("coordinate", "-i", g, "-o", g + "_crd", "--anno-header", fa)
+    cnt, crd = g + "_cnt.column.annodbg.npz", g + "_crd.coord.annodbg.npz"
+    want = {(): run("query", "-i", g, "-a", col, fa),
+            ("--query-counts",): run("query", "--query-counts", "-i", g,
+                                     "-a", cnt, fa),
+            ("--query-coords",): "".join(
+                f"{i}\t{n}\t<{n}>" + "".join(
+                    f":{w}" for w in range(len(s) - 30)) + "\n"
+                for i, (n, s) in enumerate(zip(names, seqs)))}
+    if run("query", "--query-coords", "-i", g, "-a", crd, fa) != \
+            want[("--query-coords",)]:
+        raise AssertionError("CLI query --query-coords: not each record's "
+                             "window offsets")
+    files = []
+    for t, src, mode in (("row_diff", col, ()), ("row_diff_brwt", col, ()),
+                         ("brwt", col, ()), ("rb_brwt", col, ()),
+                         ("int_row_diff", cnt, ("--query-counts",)),
+                         ("row_diff_int_brwt", cnt, ("--query-counts",)),
+                         ("row_diff_coord", crd, ("--query-coords",))):
+        base = os.path.join(tmp, f"x_{t}")
+        run("transform_anno", "--anno-type", t, "-i", g, "-o", base, src)
+        files.append((f"{base}.{t}.annodbg.npz", mode))
+    run("relax_brwt", "--relax-arity", "4", "-o",
+        os.path.join(tmp, "relaxed"), files[2][0])
+    run("merge_anno", "-o", os.path.join(tmp, "merged"), col, cnt)
+    files += [(os.path.join(tmp, "relaxed.brwt.annodbg.npz"), ()),
+              (os.path.join(tmp, "merged.column.annodbg.npz"), ())]
+    for path, mode in files:
+        if run("query", *mode, "-i", g, "-a", path, fa) != want[mode]:
+            raise AssertionError(f"CLI query {' '.join(mode)} over {path} "
+                                 f"differs from the column form's")
+        if "representation:" not in run("stats", path):
+            raise AssertionError(f"CLI stats of {path} wrong")
+    log(f"CLI transform_anno (row_diff, row_diff_brwt, brwt, rb_brwt, "
+        f"int_row_diff, row_diff_int_brwt, row_diff_coord), relax_brwt, "
+        f"merge_anno, coordinate: each file's query equals its column "
+        f"form's; query --query-coords gives each of the {len(names)} "
+        f"records its window offsets; stats of each")
+
+
 def cli_alphabets_small(tmp, run, rng, fa, names, seqs, gb):
     """Phase 4, 3f's commands, through the CLI's ``main`` in this process
     (``run``): build --alphabet Protein (basic), DNA5
@@ -2720,6 +3106,7 @@ def phase_cli(device):
         cli_surface(tmp, names, list(seqs.values()), gp, both_fa, device)
         cli_alphabets_small(tmp, cli_in_process(device), rng, fa, names,
                             seqs, gb)
+        cli_anno(tmp, run, fa, names, list(seqs.values()), g)
     log(f"CLI build/annotate/query/query --align/align/align --json/stats "
         f"--device {device}: exit 0; each of {len(names)} records labelled "
         f"with its own name and aligned to its graph with score 2*len and "
@@ -2778,11 +3165,12 @@ def main():
              "metagraph_tpu/align/pallas_dp.py:185", align_launches)):
         err, ms, plain, lib_ms, (bound_ms, bound_by) = summary[kname]
         # the main path's runs, phase 3f's (its builds and its
-        # score-only Protein alignment) and phase 3g's
+        # score-only Protein alignment), phase 3g's and phase 3h's
         n_launch = (launches[kname] + (alph_align if kname == "pallas_dp"
                                        else alph_launches)[kname]
                     + graph_launches[kname]
-                    + surface["graph launches"][kname])
+                    + surface["graph launches"][kname]
+                    + surface["anno launches"][kname])
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n_launch,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,

@@ -1,11 +1,12 @@
 """Label dictionary, the column annotator and the annotation container.
 
-PyTorch counterpart of ``metagraph_tpu/anno/annotator.py`` for the
-column (``RowSparse``) representation. Labels accumulate as (row,
-label) COO batches on the host and are finalized into a sorted
-``RowSparse`` on the device in one sort. The ``.annodbg.npz`` container
-is the JAX package's: a file written by either package loads in the
-other.
+PyTorch counterpart of ``metagraph_tpu/anno/annotator.py``. Labels
+accumulate as (row, label) COO batches on the host and are finalized
+into a sorted ``RowSparse`` on the device in one sort. The
+``.annodbg.npz`` container is the JAX package's, for every
+representation (column, Multi-BRWT, RowDiff and their integer,
+unique-row and coordinate forms): a file written by either package
+loads in the other, and the container's keys say which form it holds.
 """
 
 from __future__ import annotations
@@ -17,12 +18,6 @@ import numpy as np
 
 from ..common.device import resolve
 from .matrix import RowSparse
-
-# keys that mark the JAX package's compressed representations
-_OTHER_REPRESENTATIONS = ("ur_codes", "irdb_anchor", "ibrwt_ptr",
-                          "trd_anchor", "rdb_anchor", "coord_shape",
-                          "brwt_shape", "rd_anchor_prefix", "ird_rows")
-
 
 class LabelEncoder:
     def __init__(self, labels: Sequence[str] = ()):
@@ -96,8 +91,9 @@ class ColumnAnnotator:
 
 @dataclass
 class Annotation:
-    """A finalized annotation: matrix + label dictionary."""
-    matrix: RowSparse
+    """A finalized annotation: matrix (any representation of ``anno/``)
+    + label dictionary."""
+    matrix: object
     encoder: LabelEncoder
 
     @property
@@ -120,18 +116,64 @@ class Annotation:
             d = {key: z[key] for key in z.files}
         return annotation_from_numpy(d, device)
 
+    @staticmethod
+    def merge(parts: Sequence["Annotation"], num_rows: int,
+              device="cuda") -> "Annotation":
+        """Merge annotations over the same row space (merge_anno): the
+        labels in first-seen order, their rows united, values summed
+        (ones for a part without values when another has them)."""
+        enc = LabelEncoder()
+        mats = [p.matrix.to_row_sparse() for p in parts]
+        has_vals = any(m.values is not None for m in mats)
+        rows, cols, vals = [], [], []
+        for p, m in zip(parts, mats):
+            remap = np.array([enc.insert(label) for label in p.encoder.labels],
+                             np.int32)
+            r = m.rows.cpu().numpy()
+            c = m.cols.cpu().numpy()
+            rows.append(r)
+            cols.append(remap[c] if len(remap) else c)
+            if has_vals:
+                vals.append(m.values.cpu().numpy() if m.values is not None
+                            else np.ones_like(r))
+        empty = [np.zeros((0,), np.int32)]
+        mat = RowSparse.from_coo(np.concatenate(rows + empty),
+                                 np.concatenate(cols + empty), num_rows,
+                                 max(len(enc), 1),
+                                 values=np.concatenate(vals + empty)
+                                 if has_vals else None, device=device)
+        return Annotation(matrix=mat, encoder=enc)
+
+
+# the container's marker key of each representation, in the JAX
+# package's order of tests (a file holding several takes the first)
+_REPRESENTATIONS = [
+    ("ur_codes", "unique_row", "UniqueRow"),
+    ("irdb_anchor", "int_brwt", "IntRowDiffBrwt"),
+    ("ibrwt_ptr", "int_brwt", "IntBrwt"),
+    ("trd_anchor", "coords", "TupleRowDiff"),
+    ("rdb_anchor", "row_diff", "RowDiffBrwt"),
+    ("coord_shape", "coords", "CoordMatrix"),
+    ("brwt_shape", "brwt", "Brwt"),
+    ("rd_anchor_prefix", "row_diff", "RowDiff"),
+    ("ird_rows", "row_diff", "IntRowDiff"),
+]
+
 
 def annotation_from_numpy(d, device="cuda") -> Annotation:
-    """An annotation from its arrays: ``rows``, ``cols``, optional
-    ``values``, ``labels``, and the matrix ``shape`` (or ``num_rows``,
-    with one column per label)."""
+    """An annotation from its container's arrays (the dict of a
+    ``.annodbg.npz``: ``labels`` and the matrix's keys), on ``device``.
+    A column annotation may give ``num_rows`` in place of ``shape`` (one
+    column per label)."""
+    import importlib
     dev = resolve(device)
-    other = [key for key in _OTHER_REPRESENTATIONS if key in d]
-    if other:
-        raise NotImplementedError(
-            f"annotation representation with {other[0]!r} is not yet ported "
-            f"(column only)")
     labels = [str(x) for x in d["labels"]]
+    for key, module, cls in _REPRESENTATIONS:
+        if key in d:
+            rep = getattr(importlib.import_module(f"{__package__}.{module}"),
+                          cls)
+            return Annotation(matrix=rep.from_npz_dict(d, dev),
+                              encoder=LabelEncoder(labels))
     if "shape" not in d:
         d = dict(d, shape=np.array([int(d["num_rows"]),
                                     max(len(labels), 1)]))

@@ -4,8 +4,15 @@ PyTorch counterpart of ``metagraph_tpu/anno/matrix.py``: ``RowSparse``
 holds the set (row, column) bits sorted by (row, column) as two aligned
 int32 tensors, plus optional per-bit integer values (count
 annotations). Row queries are batched: per-row [lo, hi) ranges by
-``torch.searchsorted``, flattened by one more search over the range
-sizes ("interval expand"), then summed per column with ``index_add_``.
+``torch.searchsorted``, flattened exactly ("interval expand",
+``expand_ranges``), then summed per column with ``index_add_``.
+
+Every representation of ``anno/`` (RowSparse, Brwt, RowDiff, ...)
+answers ``row_hits(rows)``: the (query, column, value) of every entry of
+the queried rows, sparse, value 1 in a binary matrix. ``RowHits`` builds
+on it the (Q, num_cols) ``presence(rows)`` and, for the integer ones
+(``has_values``), ``values_dense(rows)``; each representation gives back
+its logical matrix with ``to_row_sparse()``.
 """
 
 from __future__ import annotations
@@ -19,24 +26,57 @@ import torch
 from ..common import device as devmod
 
 
-def _expand_intervals(lo: torch.Tensor, hi: torch.Tensor, capacity: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Flatten per-query [lo, hi) ranges into (query_idx, flat_idx,
-    valid) of length ``capacity``: entry p is the p-th element across
-    all ranges in query order."""
+def expand_ranges(lo: torch.Tensor, hi: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flatten per-query [lo, hi) ranges exactly: (owner (T,), flat (T,))
+    int64, entry p the p-th element across all ranges in query order."""
     dev = lo.device
     sizes = torch.clamp(hi - lo, min=0).to(torch.int64)
-    starts = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
-                        torch.cumsum(sizes, 0)])
-    p = torch.arange(capacity, dtype=torch.int64, device=dev)
-    q = torch.searchsorted(starts, p, side="right") - 1
-    qc = torch.clamp(q, 0, max(lo.shape[0] - 1, 0))
-    flat = lo.to(torch.int64)[qc] + (p - starts[qc]) if lo.shape[0] else p
-    return qc, flat, p < starts[-1]
+    owner = torch.repeat_interleave(
+        torch.arange(sizes.shape[0], device=dev), sizes)
+    starts = torch.cumsum(sizes, 0) - sizes
+    pos = torch.arange(owner.shape[0], device=dev)
+    return owner, lo.to(torch.int64)[owner] + pos - starts[owner]
+
+
+def host_tensor(a, device) -> torch.Tensor:
+    """A numpy array of a ``.annodbg.npz`` as a tensor on ``device``
+    (uint32 words keep their bits in int32)."""
+    a = np.array(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+class RowHits:
+    """The dense row queries of a representation that has ``row_hits``,
+    ``num_cols``, ``device`` and ``has_values``."""
+
+    def _scatter(self, rows: torch.Tensor, dtype, value) -> torch.Tensor:
+        """(Q, num_cols) with ``value(v)`` summed at each entry."""
+        Q, C = rows.shape[0], self.num_cols
+        q, c, v = self.row_hits(rows)
+        return torch.zeros((Q * C,), dtype=dtype, device=self.device) \
+            .index_add_(0, q * C + c, value(v).to(dtype)).view(Q, C)
+
+    def presence(self, rows: torch.Tensor) -> torch.Tensor:
+        """(Q, num_cols) bool: the set bits of each queried row (the
+        per-k-mer signature of --print-signature)."""
+        return self._scatter(rows, torch.int32, torch.ones_like) > 0
+
+    def values_dense(self, rows: torch.Tensor) -> torch.Tensor:
+        """(Q, num_cols) int64 values of each queried row, 0 where unset
+        (the reference IntMatrix::get_row_values)."""
+        if not self.has_values:
+            raise ValueError("values_dense needs a matrix with values")
+        return self._scatter(rows, torch.int64, lambda v: v)
+
+    def to_row_sparse(self) -> "RowSparse":
+        return row_sparse_of(self)
 
 
 @dataclass(frozen=True)
-class RowSparse:
+class RowSparse(RowHits):
     """Sorted-COO binary matrix with optional integer values."""
     rows: torch.Tensor               # (nnz,) int32, sorted
     cols: torch.Tensor               # (nnz,) int32, sorted within a row
@@ -48,22 +88,33 @@ class RowSparse:
     def nnz(self) -> int:
         return int(self.rows.shape[0])
 
+    @property
+    def has_values(self) -> bool:
+        return self.values is not None
+
+    @property
+    def device(self) -> torch.device:
+        return self.rows.device
+
+    def to_row_sparse(self) -> "RowSparse":
+        return self
+
     @staticmethod
     def from_coo(rows, cols, num_rows: int, num_cols: int, values=None,
                  device="cuda") -> "RowSparse":
         """Sorted by (row, col), duplicates merged (values summed), on
-        ``device`` (the card unless the caller names another)."""
+        ``device`` (the card unless the caller names another). The
+        arrays may be numpy arrays or tensors."""
         device = devmod.resolve(device)
-        rows = torch.as_tensor(np.asarray(rows, np.int32), device=device)
-        cols = torch.as_tensor(np.asarray(cols, np.int32), device=device)
+        rows = torch.as_tensor(rows, device=device).to(torch.int32)
+        cols = torch.as_tensor(cols, device=device).to(torch.int32)
         # (row, col) order: stable sort by col, then stable sort by row
         perm = torch.sort(cols, stable=True).indices
         perm = perm[torch.sort(rows[perm], stable=True).indices]
         r, c = rows[perm], cols[perm]
         v = None
         if values is not None:
-            v = torch.as_tensor(np.asarray(values, np.int32),
-                                device=device)[perm]
+            v = torch.as_tensor(values, device=device).to(torch.int32)[perm]
         if r.shape[0] > 0:
             first = torch.cat([torch.ones((1,), dtype=torch.bool,
                                           device=r.device),
@@ -90,46 +141,23 @@ class RowSparse:
                  weights: torch.Tensor) -> torch.Tensor:
         """(num_cols,) weighted count of set bits per column over the
         given rows (reference BinaryMatrix::sum_rows)."""
-        lo, hi = self.row_ranges(row_idx)
-        q, flat, valid = _expand_intervals(lo, hi,
-                                           max(int(torch.sum(hi - lo)), 1))
-        col = self.cols[torch.clamp(flat, 0, max(self.nnz - 1, 0))]
-        w = torch.where(valid, weights.to(torch.int64)[q], 0)
+        q, e = self.row_entries(row_idx)
         return torch.zeros((self.num_cols,), dtype=torch.int64,
-                           device=w.device).index_add_(0, col.long(), w)
+                           device=self.device).index_add_(
+            0, self.cols[e].long(), weights.to(torch.int64)[q])
 
-    def _expand_rows(self, row_idx: torch.Tensor):
-        """(query index, clamped entry index, valid) over the entries of
-        the given rows, or None when there are none."""
-        lo, hi = self.row_ranges(row_idx)
-        cap = int(torch.sum(hi - lo)) if self.nnz else 0
-        if cap == 0:
-            return None
-        q, flat, valid = _expand_intervals(lo, hi, cap)
-        return q, torch.clamp(flat, 0, self.nnz - 1), valid
+    def row_entries(self, row_idx: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(query index, entry index) int64 of every entry of the given
+        rows, in query order (rows outside the matrix have none)."""
+        return expand_ranges(*self.row_ranges(row_idx))
 
-    def _dense(self, row_idx: torch.Tensor, vals, dtype) -> torch.Tensor:
-        """(Q, num_cols) with ``vals(entry index)`` at each set bit."""
-        Q, C = row_idx.shape[0], self.num_cols
-        out = torch.zeros((Q * C + 1,), dtype=dtype, device=self.rows.device)
-        hits = self._expand_rows(row_idx)
-        if hits is not None:
-            q, fc, valid = hits
-            key = torch.where(valid, q * C + self.cols[fc].long(), Q * C)
-            out.index_add_(0, key, vals(fc).to(dtype))
-        return out[:Q * C].view(Q, C)
-
-    def presence(self, row_idx: torch.Tensor) -> torch.Tensor:
-        """(Q, num_cols) bool: the set bits of each queried row (the
-        per-k-mer signature of --print-signature)."""
-        return self._dense(row_idx, torch.ones_like, torch.int32) > 0
-
-    def values_dense(self, row_idx: torch.Tensor) -> torch.Tensor:
-        """(Q, num_cols) int32 values of each queried row, 0 where unset
-        (the reference IntMatrix::get_row_values)."""
-        if self.values is None:
-            raise ValueError("values_dense needs a matrix with values")
-        return self._dense(row_idx, lambda fc: self.values[fc], torch.int32)
+    def row_hits(self, row_idx: torch.Tensor):
+        """(query index, column, value) int64 of every entry of the given
+        rows, in query order (value 1 without values)."""
+        q, e = self.row_entries(row_idx)
+        return q, self.cols[e].long(), (torch.ones_like(q) if self.values
+                                        is None else self.values[e].long())
 
     # -- serialization -----------------------------------------------------
 
@@ -153,3 +181,25 @@ class RowSparse:
         return RowSparse(rows=t(d[prefix + "rows"]), cols=t(d[prefix + "cols"]),
                          num_rows=int(shape[0]), num_cols=int(shape[1]),
                          values=None if values is None else t(values))
+
+
+def row_sparse_of(m, chunk: int = 1 << 18) -> RowSparse:
+    """The logical matrix of any representation as a RowSparse on its
+    device (with values for the integer ones), decoded ``chunk`` rows at
+    a time."""
+    dev = m.device
+    rs, cs, vs = [], [], []
+    for s in range(0, m.num_rows, chunk):
+        rows = torch.arange(s, min(s + chunk, m.num_rows), device=dev)
+        dense = m.values_dense(rows) if m.has_values else m.presence(rows)
+        r, c = torch.nonzero(dense, as_tuple=True)
+        rs.append(r + s)
+        cs.append(c)
+        if m.has_values:
+            vs.append(dense[r, c])
+    empty = torch.zeros((0,), dtype=torch.int64, device=dev)
+    return RowSparse(rows=torch.cat(rs + [empty]).to(torch.int32),
+                     cols=torch.cat(cs + [empty]).to(torch.int32),
+                     num_rows=m.num_rows, num_cols=m.num_cols,
+                     values=torch.cat(vs + [empty]).to(torch.int32)
+                     if m.has_values else None)

@@ -3,7 +3,10 @@ stats, on basic, canonical and primary graphs over the DNA, DNA5,
 DNACaseSent and Protein alphabets, in the fast or the small state; and
 the graph algorithms: assemble (unitigs, contigs, GFA, differential
 assembly by label masks), clean, transform, compare, extend, merge and
-align -o *.gfa.
+align -o *.gfa; and the annotation forms: transform_anno (every
+--anno-type of the JAX CLI), relax_brwt, merge_anno, coordinate /
+annotate --coordinates and query --query-coords. Every command that
+reads an annotation takes every form.
 
 PyTorch counterpart of ``metagraph_tpu/cli/main.py`` for the subset the
 port covers; stdout is byte for byte that of the JAX CLI. Every command
@@ -36,6 +39,13 @@ subcommand or flag exits non-zero with "not yet ported".
     python -m metagraph_tpu_torch.cli.main extend -i graph -o ext more.fa
     python -m metagraph_tpu_torch.cli.main merge -o merged g1 g2
     python -m metagraph_tpu_torch.cli.main align -i graph -o paths.gfa q.fa
+    python -m metagraph_tpu_torch.cli.main transform_anno --anno-type row_diff \
+        -i graph -o rd graph.column.annodbg.npz
+    python -m metagraph_tpu_torch.cli.main transform_anno --anno-type brwt \
+        --relax-arity 8 -o b graph.column.annodbg.npz
+    python -m metagraph_tpu_torch.cli.main coordinate -i graph --anno-header in.fa
+    python -m metagraph_tpu_torch.cli.main query --query-coords -i graph \
+        -a graph.coord.annodbg.npz q.fa
 """
 
 from __future__ import annotations
@@ -49,8 +59,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 # the JAX CLI's other subcommands
-_NOT_PORTED = ("concatenate", "transform_anno", "relax_brwt", "merge_anno",
-               "server_query", "coordinate", "coordinator", "worker")
+_NOT_PORTED = ("concatenate", "server_query", "coordinator", "worker")
 
 
 # reference options the JAX CLI accepts on every subcommand with no
@@ -225,8 +234,13 @@ def _print_annotation_stats(f, device, print_col_names: bool = False):
     density = ann.matrix.nnz / max(ann.matrix.num_rows, 1) \
         / max(ann.num_labels, 1)
     print(f"density: {density:.6g}")
-    rep = {"rowsparse": "column"}.get(ann.representation, ann.representation)
+    rep = {"rowsparse": "column", "rowdiff": "row_diff"}.get(
+        ann.representation, ann.representation)
     print(f"representation: {rep}")
+    if rep == "brwt":
+        print("=================== Multi-BRWT STATS ===================")
+        print(f"num nodes: {ann.matrix.num_nodes()}")
+        print(f"avg arity: {ann.matrix.avg_arity()}")
     print("========================================================")
 
 
@@ -375,6 +389,11 @@ def validate_graph(g) -> list:
 
 
 def cmd_annotate(args):
+    """annotate, and coordinate (annotate with --coordinates on): a column
+    annotation (``.column.annodbg.npz``) or a coordinate one
+    (``.coord.annodbg.npz``: each window's offset in its label's
+    sequences)."""
+    from ..anno.coords import annotate_coordinates
     from ..engine.annotated_dbg import annotate_sequences
     from ..seqio.fasta import parse_records
 
@@ -399,10 +418,15 @@ def cmd_annotate(args):
                     labels.append(name)
             labels.extend(args.anno_label or [])
             items.append((rec.seq, labels))
-    ann = annotate_sequences(g, items, with_counts=args.count_kmers).finalize()
+    if args.coordinates:
+        ann = annotate_coordinates(g, items).finalize()
+    else:
+        ann = annotate_sequences(g, items,
+                                 with_counts=args.count_kmers).finalize()
     out = args.outfile_base or args.infile_base
     if not out.endswith(".annodbg.npz"):
-        out = out + ".column.annodbg.npz"
+        out = out + (".coord.annodbg.npz" if args.coordinates
+                     else ".column.annodbg.npz")
     ann.save(out)
     log(f"Serialized annotation to {out} "
         f"({ann.num_labels} labels, {ann.matrix.nnz} relations)")
@@ -410,9 +434,9 @@ def cmd_annotate(args):
 
 def _query_batch(bq, seqs, args):
     """One batch through the query mode the flags select, in the JAX
-    CLI's order (signature, quantiles, k-mer counts, label counts,
-    labels): per read its result (empty when unlabeled) and its output
-    fields after the read's index and name."""
+    CLI's order (signature, coordinates, quantiles, k-mer counts, label
+    counts, labels): per read its result (empty when unlabeled) and its
+    output fields after the read's index and name."""
     adbg = bq.adbg
     if args.print_signature:
         results = bq.get_top_label_signatures_batch(
@@ -421,6 +445,17 @@ def _query_batch(bq, seqs, args):
             f"\t<{label}>:{int(mask.sum())}:"
             f"{(mask.astype(np.uint8) + 48).tobytes().decode()}:"
             f"{adbg.score_kmer_presence_mask(mask)}" for label, mask in res)
+    if args.query_coords:
+        # per label one field per window: its coordinates, comma-joined
+        try:
+            results = bq.get_kmer_coordinates_batch(
+                seqs, args.num_top_labels, args.discovery_fraction)
+        except ValueError as e:
+            raise SystemExit(f"query --query-coords: {e}") from e
+        return results, lambda res: "".join(
+            f"\t<{label}>" + "".join(":" + ",".join(map(str, c))
+                                     for c in tuples)
+            for label, tuples in res)
     if args.count_quantiles:
         qs = [float(x) for x in args.count_quantiles.split()]
         results = bq.get_label_count_quantiles_batch(
@@ -1004,6 +1039,258 @@ def cmd_transform(args):
         log(f"Wrote adjacency list to {args.outfile_base}.adjlist")
 
 
+# ---------------------------------------------------------------------------
+# annotation conversions: transform_anno, relax_brwt, merge_anno
+# ---------------------------------------------------------------------------
+
+def cmd_merge_anno(args):
+    """One column annotation of several over the same rows."""
+    from ..anno.annotator import Annotation
+    parts = [Annotation.load(f, device=args.device) for f in args.fnames]
+    merged = Annotation.merge(parts, max(p.matrix.num_rows for p in parts),
+                              device=args.device)
+    path = args.outfile_base + ".column.annodbg.npz"
+    merged.save(path)
+    log(f"Merged {len(parts)} annotations -> {path} "
+        f"({merged.num_labels} labels)")
+
+
+def _accumulate(path: str, key: str, arr: np.ndarray):
+    """Add ``arr`` into the artifact at ``path`` (the staged conversion's
+    column batches sum their row counts and reductions), then save."""
+    import os
+    if os.path.exists(path):
+        old = np.load(path)[key]
+        acc = np.zeros(max(len(old), len(arr)), np.int64)
+        acc[:len(old)] += old
+        acc[:len(arr)] += arr
+        arr = acc
+    np.savez_compressed(path, **{key: arr})
+
+
+def _load_rd_artifacts(outfile_base: str):
+    """The stage-0 / stage-1 artifacts next to the output base, if there."""
+    import os
+    found = []
+    for suffix, key in ((".row_count.npz", "row_count"),
+                        (".row_reduction.npz", "row_reduction")):
+        p = outfile_base + suffix
+        found.append(np.load(p)[key] if os.path.exists(p) else None)
+    return found
+
+
+def _row_diff_stage(args, rs, target: str):
+    """Stage 0 (labels per row) or stage 1 (the reduction of each row
+    under the path anchors; needs the graph) of the reference's staged
+    RowDiff conversion, accumulated into ``<out>.row_count.npz`` /
+    ``<out>.row_reduction.npz`` across calls."""
+    import os
+    from ..anno import row_diff as rd
+    if args.row_diff_stage == 0:
+        path = args.outfile_base + ".row_count.npz"
+        _accumulate(path, "row_count",
+                    rd.compute_row_counts(rs).cpu().numpy())
+        log(f"row_diff stage 0: accumulated label counts for "
+            f"{rs.num_cols} columns -> {path}")
+        return
+    if not args.infile_base:
+        raise SystemExit("transform_anno: row_diff stage 1 needs the graph "
+                         "(-i)")
+    g = _load_graph(args.infile_base, args.device)
+    cpath = args.outfile_base + ".row_count.npz"
+    row_counts = (np.load(cpath)["row_count"] if os.path.exists(cpath)
+                  else None)
+    fn = (rd.compute_row_reduction_int
+          if target.startswith("int_row_diff") and rs.values is not None
+          else rd.compute_row_reduction)
+    red = fn(rs, g, max_length=args.max_path_length, row_counts=row_counts)
+    path = args.outfile_base + ".row_reduction.npz"
+    _accumulate(path, "row_reduction", red.cpu().numpy())
+    log(f"row_diff stage 1: accumulated row reductions -> {path}")
+
+
+def _read_linkage(path: str):
+    """Rows '<c1> <c2> <dist> <merged>' of a linkage file."""
+    out = []
+    with open(path) as fh:
+        for line in fh:
+            ps = line.split()
+            if len(ps) == 4:
+                out.append((int(ps[0]), int(ps[1]), float(ps[2]),
+                            int(ps[3])))
+    return out
+
+
+def _convert(args, mat, target: str):
+    """The ``--anno-type`` conversion of a loaded matrix."""
+    from ..anno import brwt, coords, int_brwt, row_diff, unique_row
+
+    def graph():
+        if not args.infile_base:
+            raise SystemExit(f"transform_anno: {target} needs the graph (-i)")
+        return _load_graph(args.infile_base, args.device)
+
+    def counts(rs):
+        if rs.values is None:
+            raise SystemExit(f"transform_anno: {target} needs a count "
+                             f"annotation (annotate --count-kmers)")
+        return rs
+
+    if target in ("column_coord", "row_diff_coord", "tuple_row_diff"):
+        if not isinstance(mat, coords.CoordMatrix):
+            raise SystemExit(f"transform_anno: {target} needs a coordinate "
+                             f"annotation input (annotate --coordinates)")
+        if target == "column_coord":
+            return mat
+        return coords.build_tuple_row_diff(mat, graph(),
+                                           args.max_path_length)
+    rs = mat.to_row_sparse()
+    if target in ("column", "row", "row_sparse", "flat"):
+        return rs
+    if target in ("brwt", "bin_rel_wt", "bin_rel_wt_sdsl"):
+        # bin_rel_wt*: the binary-relation wavelet tree's role, stored as a
+        # BRWT (the same query surface), as in the JAX package
+        linkage = (_read_linkage(args.linkage_file)
+                   if target == "brwt" and args.linkage_file else None)
+        out = brwt.build_brwt(rs, subsample=args.num_rows_subsampled,
+                              linkage=linkage)
+        if target == "brwt" and args.relax_arity > 2:
+            out = brwt.relax_brwt(out, args.relax_arity)
+        return out
+    if target in ("unique_row", "rbfish"):
+        return unique_row.UniqueRow.from_row_sparse(rs)
+    if target == "rb_brwt":
+        return unique_row.UniqueRow.from_row_sparse(rs).with_brwt_distinct(
+            subsample=args.num_rows_subsampled)
+    if target == "int_brwt":
+        return int_brwt.build_int_brwt(counts(rs),
+                                       subsample=args.num_rows_subsampled)
+    g = graph()
+    if g.num_nodes() != rs.num_rows:
+        # a primary graph's wrapper walks 2N virtual nodes over N rows; the
+        # JAX package fails on the mismatch (ValueError): matched
+        raise SystemExit(f"transform_anno: {target} of a graph with "
+                         f"{g.num_nodes()} nodes and an annotation of "
+                         f"{rs.num_rows} rows fails in the reference "
+                         f"(primary graphs)")
+    if target == "row_diff_brwt":
+        return row_diff.build_row_diff_brwt(
+            rs, g, max_length=args.max_path_length,
+            subsample=args.num_rows_subsampled)
+    rc, rr = _load_rd_artifacts(args.outfile_base)
+    kw = dict(max_length=args.max_path_length, row_counts=rc,
+              row_reduction=rr)
+    if target in ("row_diff", "row_diff_sparse"):
+        # row_diff_sparse: RowDiff over a RowSparse diff matrix, which is
+        # the row_diff form here
+        return row_diff.build_row_diff(rs, g, **kw)
+    if target == "int_row_diff":
+        return row_diff.build_int_row_diff(counts(rs), g, **kw)
+    return int_brwt.build_int_row_diff_brwt(      # row_diff_int_brwt
+        counts(rs), g, subsample=args.num_rows_subsampled, **kw)
+
+
+def cmd_transform_anno(args):
+    """Convert an annotation to another representation (``--anno-type``),
+    or: rename its labels first (``--rename-cols``); aggregate columns
+    into one mask column (``--aggregate-columns``); write the column
+    linkage only (``--linkage``); dump its columns as text
+    (``--dump-text-anno``); run stage 0 or 1 of a staged RowDiff
+    conversion (``--row-diff-stage``)."""
+    import math
+    from ..anno.annotator import Annotation, LabelEncoder
+    from ..anno.matrix import RowSparse
+
+    if args.disk_swap:
+        raise SystemExit("transform_anno --disk-swap (the out-of-core staged "
+                         "RowDiff conversion) is not yet ported: ROADMAP "
+                         "queue 1 item 8")
+    ann = Annotation.load(args.fnames[0], device=args.device)
+    if args.rename_cols:
+        # whitespace-separated "<old> <new>" pairs
+        with open(args.rename_cols) as fh:
+            toks = fh.read().split()
+        if len(toks) % 2:
+            raise SystemExit(f"{args.rename_cols}: odd token count in "
+                             "rename rules")
+        rename = dict(zip(toks[::2], toks[1::2]))
+        enc = LabelEncoder([rename.get(label, label)
+                            for label in ann.encoder.labels])
+        if len(enc) != len(ann.encoder.labels):
+            raise SystemExit("rename rules collapse distinct labels")
+        ann = Annotation(matrix=ann.matrix, encoder=enc)
+    if args.aggregate_columns:
+        # one "mask" column: the rows set in [min, max] of all input columns
+        parts = [ann] + [Annotation.load(f, device=args.device)
+                         for f in args.fnames[1:]]
+        num_columns = sum(p.num_labels for p in parts)
+        num_rows = max(p.matrix.num_rows for p in parts)
+        counts = np.zeros(num_rows, np.int64)
+        for p in parts:
+            np.add.at(counts, p.matrix.to_row_sparse().rows.cpu().numpy(), 1)
+        min_cols = max(math.ceil(num_columns * args.min_fraction),
+                       args.min_count)
+        max_cols = min(math.floor(num_columns * args.max_fraction),
+                       args.max_count if args.max_count is not None
+                       else num_columns)
+        keep = np.nonzero((counts >= min_cols) & (counts <= max_cols))[0]
+        out = Annotation(matrix=RowSparse.from_coo(
+            keep, np.zeros(len(keep), np.int64), num_rows, 1,
+            device=args.device), encoder=LabelEncoder([args.anno_label
+                                                       or "mask"]))
+        path = args.outfile_base + ".column.annodbg.npz"
+        out.save(path)
+        log(f"Aggregated {num_columns} columns ({min_cols} <= * <= "
+            f"{max_cols}) -> {path} ({len(keep)} rows set)")
+        return
+    if args.compute_linkage:
+        from ..anno.brwt import compute_linkage
+        rs = ann.matrix.to_row_sparse()
+        path = args.outfile_base + ".linkage"
+        with open(path, "w") as fh:
+            fh.write("".join(f"{c1} {c2} {dist:g} {m}\n" for c1, c2, dist, m
+                             in compute_linkage(
+                                 rs, subsample=args.num_rows_subsampled)))
+        log(f"Linkage of {rs.num_cols} columns -> {path}")
+        return
+    if args.dump_text_anno:
+        # per column "<set bits>" then one row id a line
+        rs = ann.matrix.to_row_sparse()
+        rows, cols = rs.rows.cpu().numpy(), rs.cols.cpu().numpy()
+        for ci, label in enumerate(ann.encoder.labels):
+            rset = np.sort(rows[cols == ci])
+            path = f"{args.outfile_base}.{ci}.text.annodbg"
+            with open(path, "w") as fh:
+                fh.write(f"{len(rset)}\n" + "".join(f"{r}\n"
+                                                    for r in rset.tolist()))
+            log(f"Dumped column '{label}' -> {path}")
+        return
+    target = args.anno_type
+    if target.startswith(("row_diff", "int_row_diff", "tuple_row_diff")) \
+            and args.row_diff_stage < 2:
+        _row_diff_stage(args, ann.matrix.to_row_sparse(), target)
+        return
+    out_mat = _convert(args, ann.matrix, target)
+    if target == "int_row_diff_brwt":
+        target = "row_diff_int_brwt"
+    path = args.outfile_base + f".{target}.annodbg.npz"
+    Annotation(matrix=out_mat, encoder=ann.encoder).save(path)
+    log(f"Serialized {target} annotation to {path}")
+
+
+def cmd_relax_brwt(args):
+    """Widen a BRWT's nodes up to ``--relax-arity`` children."""
+    from ..anno.annotator import Annotation
+    from ..anno.brwt import Brwt, relax_brwt
+    ann = Annotation.load(args.fnames[0], device=args.device)
+    if not isinstance(ann.matrix, Brwt):
+        raise SystemExit("relax_brwt: the input must be a BRWT annotation")
+    path = args.outfile_base + ".brwt.annodbg.npz"
+    Annotation(matrix=relax_brwt(ann.matrix, args.relax_arity),
+               encoder=ann.encoder).save(path)
+    log(f"Serialized relaxed BRWT to {path}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="metagraph",
                                 description="MetaGraph on PyTorch (port)")
@@ -1078,8 +1365,24 @@ def build_parser() -> argparse.ArgumentParser:
                          "delimiter before taking labels")
     sp.add_argument("--anno-label", action="append")
     sp.add_argument("--count-kmers", action="store_true")
+    sp.add_argument("--coordinates", action="store_true",
+                    help="annotate k-mer coordinates (.coord.annodbg.npz)")
     # one annotation over all inputs either way (as the JAX CLI)
     sp.add_argument("--separately", action="store_true")
+    sp.add_argument("fnames", nargs="+")
+
+    # annotate with coordinates on; the JAX CLI's parser for it lacks
+    # --header-comment-delim, so its --anno-header fails there
+    # (AttributeError): a fault of the reference, repaired here
+    sp = add("coordinate", cmd_annotate)
+    sp.add_argument("-i", "--infile-base", required=True)
+    sp.add_argument("-o", "--outfile-base", default=None)
+    sp.add_argument("--anno-filename", action="store_true")
+    sp.add_argument("--anno-header", action="store_true")
+    sp.add_argument("--header-delimiter", default="")
+    sp.add_argument("--anno-label", action="append")
+    sp.set_defaults(count_kmers=False, coordinates=True, separately=False,
+                    header_comment_delim="")
     sp.add_argument("fnames", nargs="+")
 
     sp = add("query", cmd_query)
@@ -1093,6 +1396,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--count-quantiles", default=None,
                     help="space-separated quantiles in [0, 1]")
     sp.add_argument("--print-signature", action="store_true")
+    sp.add_argument("--query-coords", action="store_true",
+                    help="per label, the coordinates of every k-mer")
     sp.add_argument("--suppress-unlabeled", action="store_true")
     sp.add_argument("--num-top-labels", type=int, default=2 ** 62)
     sp.add_argument("--discovery-fraction", type=float, default=0.7)
@@ -1239,6 +1544,61 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--num-shards", type=int, default=0,
                     help="the streaming out-of-core merge (not yet ported)")
     sp.add_argument("--state", choices=["fast", "small"], default="fast")
+
+    sp = add("merge_anno", cmd_merge_anno)
+    sp.add_argument("-o", "--outfile-base", required=True)
+    sp.add_argument("fnames", nargs="+")
+
+    sp = add("transform_anno", cmd_transform_anno)
+    sp.add_argument("-o", "--outfile-base", required=True)
+    sp.add_argument("-i", "--infile-base", default=None,
+                    help="graph (for the row_diff forms)")
+    sp.add_argument("--anno-type", default="column",
+                    choices=["column", "row", "row_sparse", "flat", "brwt",
+                             "bin_rel_wt", "bin_rel_wt_sdsl",
+                             "row_diff", "row_diff_sparse", "int_row_diff",
+                             "unique_row", "rbfish", "rb_brwt",
+                             "row_diff_brwt", "int_brwt",
+                             "row_diff_int_brwt", "int_row_diff_brwt",
+                             "column_coord", "row_diff_coord",
+                             "tuple_row_diff"])
+    sp.add_argument("--max-path-length", type=int, default=64)
+    # the bottom-up build pairs columns greedily whatever the arity, as in
+    # the JAX package: accepted for the reference's command lines
+    sp.add_argument("--arity", type=int, default=2)
+    sp.add_argument("--relax-arity", type=int, default=2)
+    sp.add_argument("--num-rows-subsampled", "--subsample",
+                    dest="num_rows_subsampled", type=int, default=1000000)
+    sp.add_argument("--disk-swap", default="",
+                    help="the out-of-core staged conversion (not yet "
+                         "ported)")
+    sp.add_argument("--row-diff-stage", type=int, default=2,
+                    help="0 / 1: accumulate the staged conversion's "
+                         "artifacts; 2: the whole conversion")
+    sp.add_argument("--rename-cols", default="",
+                    help="file with '<old> <new>' label rename pairs")
+    sp.add_argument("--dump-text-anno", action="store_true",
+                    help="dump each column as a text file of set row ids")
+    sp.add_argument("--linkage", dest="compute_linkage",
+                    action="store_true",
+                    help="only compute the column linkage file")
+    sp.add_argument("--greedy", action="store_true",
+                    help="greedy column pairing (the only strategy)")
+    sp.add_argument("--linkage-file", default="",
+                    help="guide the BRWT tree with this linkage file")
+    sp.add_argument("--aggregate-columns", action="store_true")
+    sp.add_argument("--min-count", type=int, default=1)
+    sp.add_argument("--max-count", type=int, default=None)
+    sp.add_argument("--min-fraction", type=float, default=0.0)
+    sp.add_argument("--max-fraction", type=float, default=1.0)
+    sp.add_argument("--anno-label", default="",
+                    help="label of the aggregated column")
+    sp.add_argument("fnames", nargs="+")
+
+    sp = add("relax_brwt", cmd_relax_brwt)
+    sp.add_argument("-o", "--outfile-base", required=True)
+    sp.add_argument("--relax-arity", type=int, default=8)
+    sp.add_argument("fnames", nargs="+")
     return p
 
 

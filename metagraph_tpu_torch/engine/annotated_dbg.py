@@ -18,11 +18,16 @@ semantics are the reference's:
   * signatures (``--print-signature``): per label its k-mer presence
     mask, scored by ``score_kmer_presence_mask``;
   * count quantiles (``--count-quantiles``): per label, quantile q of the
-    zero-padded sorted values is entry floor((num_windows - 1) * q).
+    zero-padded sorted values is entry floor((num_windows - 1) * q);
+  * coordinates (``--query-coords``): per selected label, each window's
+    coordinates (a coordinate annotation).
 
-The unique rows of a batch are gathered on the device (``presence`` /
-``values_dense``); the per-read selection and formatting run on the
-host, in the JAX package's order of operations.
+The annotation may be any representation of ``anno/``: each gives the
+sparse entries of the present windows' rows (``row_hits``, the anchor
+walks and BRWT descents included), decoded a bounded number of windows
+at a time, and those are summed per read on the device. The per-read
+selection and formatting run on the host, in the JAX package's order of
+operations.
 """
 
 from __future__ import annotations
@@ -35,10 +40,11 @@ import numpy as np
 import torch
 
 from ..anno.annotator import Annotation, ColumnAnnotator
-from ..anno.matrix import RowSparse, _expand_intervals
-from ..graph.dbg_succinct import DbgSuccinct
-from ..kmer.alphabets import INVALID_CODE
-from ..kmer.extractor import encode_sequences
+from ..graph.dbg_succinct import DbgSuccinct, map_sequences
+
+# present windows per row_hits call: bounds a batch's temporaries (its
+# entries, anchor walks and descents) whatever the batch's size
+_CHUNK = 1 << 20
 
 
 @dataclass
@@ -49,6 +55,15 @@ class AnnotatedDbg:
     @property
     def num_labels(self) -> int:
         return self.annotation.num_labels
+
+    def get_kmer_coordinates(self, sequence: bytes | str,
+                             num_top_labels: int = 2 ** 62,
+                             presence_ratio: float = 0.0
+                             ) -> List[Tuple[str, List[List[int]]]]:
+        """Per label, one coordinate list per k-mer window of one
+        sequence (reference AnnotatedDBG::get_kmer_coordinates)."""
+        return BatchQuery(self).get_kmer_coordinates_batch(
+            [sequence], num_top_labels, presence_ratio)[0]
 
     def score_kmer_presence_mask(self, mask: np.ndarray,
                                  match_score: int = 1,
@@ -99,53 +114,23 @@ class BatchQuery:
     aggregated in a few device calls."""
 
     def __init__(self, adbg: AnnotatedDbg):
-        if not isinstance(adbg.annotation.matrix, RowSparse):
-            raise NotImplementedError(
-                "queries over compressed annotations are not yet ported")
         self.adbg = adbg
-        # host copy of the row index for the exact expand size
-        self._rows_np = adbg.annotation.matrix.rows.cpu().numpy()
 
     def _map_batch(self, seqs: Sequence[bytes]):
         """Returns (rows (W,) int64 anno rows, -1 = absent; read_id (W,);
         windows per read (R,))."""
         g = self.adbg.graph
-        k = g.k
         if (getattr(g, "boss", None) is not None
                 and g.boss.edge_lanes is None):
             # small state: the incremental walk (O(1) rank/select calls per
             # window) in place of the flat k-step search per window
             per = g.map_read_batch(list(seqs))
-            return (np.concatenate([np.where(nodes > 0,
-                                             g.node_to_anno_row(nodes), -1)
-                                    for nodes in per]
-                                   + [np.zeros(0, np.int64)]),
-                    np.concatenate([np.full(len(nodes), r, np.int64)
-                                    for r, nodes in enumerate(per)]
-                                   + [np.zeros(0, np.int64)]),
-                    np.array([len(nodes) for nodes in per], np.int64))
-        codes_np = encode_sequences(seqs, g.alphabet)
-        if len(codes_np) < k:
-            codes_np = np.concatenate(
-                [codes_np, np.full(k - len(codes_np), INVALID_CODE,
-                                   np.uint8)])
-        nodes = g.map_codes_to_nodes(
-            torch.from_numpy(codes_np).to(g.device)).cpu().numpy()
-        rows_all = np.where(nodes > 0, g.node_to_anno_row(nodes), -1)
-        # window w belongs to read r iff it lies fully inside r's span;
-        # reads are one separator byte apart
-        rows, read_ids, wpr = [], [], []
-        off = 0
-        for r, s in enumerate(seqs):
-            nw = max(0, len(s) - k + 1)
-            rows.append(rows_all[off:off + nw])
-            read_ids.append(np.full(nw, r, np.int64))
-            wpr.append(nw)
-            off += len(s) + 1
-        return (np.concatenate(rows) if rows else np.zeros(0, np.int64),
-                np.concatenate(read_ids) if read_ids
-                else np.zeros(0, np.int64),
-                np.array(wpr, np.int64))
+        else:
+            per = map_sequences(g, seqs)
+        wpr = np.array([len(nodes) for nodes in per], np.int64)
+        nodes = np.concatenate(per + [np.zeros(0, np.int64)])
+        return (np.where(nodes > 0, g.node_to_anno_row(nodes), -1),
+                np.repeat(np.arange(len(per), dtype=np.int64), wpr), wpr)
 
     def _present(self, seqs: Sequence[bytes]):
         """_map_batch plus (present mask (W,), present windows per read)."""
@@ -155,38 +140,44 @@ class BatchQuery:
         np.add.at(n_present, read_ids[present], 1)
         return rows, read_ids, wpr, present, n_present
 
-    def _sum_present(self, rows, read_ids, present, num_reads: int,
-                     weights=None) -> np.ndarray:
-        """(R, C) per-read sums over the present windows' matrix entries
-        (``weights`` per entry; None counts each entry once)."""
+    def _window_hits(self, rows, present):
+        """(index into the present windows, column, value) int64 device
+        tensors of every entry of the present windows' rows (value 1 in a
+        binary matrix), one ``row_hits`` call per _CHUNK windows."""
         m = self.adbg.annotation.matrix
-        pr = rows[present].astype(np.int32)
-        rid = read_ids[present].astype(np.int32)
-        lo = np.searchsorted(self._rows_np, pr, side="left")
-        hi = np.searchsorted(self._rows_np, pr, side="right")
-        dev = m.rows.device
-        counts = _batch_sum_rows(m, torch.from_numpy(pr).to(dev),
-                                 torch.from_numpy(rid).to(dev), num_reads,
-                                 int((hi - lo).sum()), weights)
-        return counts.cpu().numpy().astype(np.int64)
+        pr = torch.from_numpy(rows[present]).to(m.device)
+        for s in range(0, pr.shape[0], _CHUNK):
+            q, c, v = m.row_hits(pr[s:s + _CHUNK])
+            yield q + s, c, v
 
-    def _unique_rows(self, rows, present):
-        """The present windows' unique rows as a device tensor (None when
-        no window is present) and each present window's index into it."""
-        pr = rows[present]
-        if not len(pr):
-            return None, np.zeros(0, np.int64)
-        uniq, inv = np.unique(pr, return_inverse=True)
-        dev = self.adbg.annotation.matrix.rows.device
-        return torch.from_numpy(uniq).to(dev), inv
+    def _read_sums(self, rows, read_ids, present, num_reads: int,
+                   *weights) -> List[np.ndarray]:
+        """Per weight (a function of the entries' values), the (R, C)
+        per-read sums of it over the present windows' entries: one
+        ``index_add_`` per chunk keyed by read and label."""
+        m = self.adbg.annotation.matrix
+        C = m.num_cols
+        rid = torch.from_numpy(read_ids[present]).to(m.device)
+        outs = [torch.zeros((num_reads * C,), dtype=torch.int64,
+                            device=m.device) for _ in weights]
+        for w, c, v in self._window_hits(rows, present):
+            key = rid[w] * C + c
+            for out, weight in zip(outs, weights):
+                out.index_add_(0, key, weight(v))
+        return [out.view(num_reads, C).cpu().numpy() for out in outs]
+
+    def _counts(self, rows, read_ids, present, num_reads: int) -> np.ndarray:
+        """(R, C) per-read label k-mer counts of mapped windows."""
+        return self._read_sums(rows, read_ids, present, num_reads,
+                               torch.ones_like)[0]
 
     def label_count_matrix(self, seqs: Sequence[bytes]
                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """((R, num_labels) per-read label k-mer counts, (R,) windows
         per read, (R,) present windows per read)."""
         rows, read_ids, wpr, present, n_present = self._present(seqs)
-        counts = self._sum_present(rows, read_ids, present, len(seqs))
-        return counts, wpr, n_present
+        return (self._counts(rows, read_ids, present, len(seqs)), wpr,
+                n_present)
 
     def _selected(self, seqs, presence_ratio):
         """Per read: None if it reports nothing, else (counts row,
@@ -232,17 +223,11 @@ class BatchQuery:
         """--query-counts: per read and label the sum of the values over
         the present windows, selected by the presence counts. Without
         values the presence counts stand in for them."""
-        m = self.adbg.annotation.matrix
         enc = self.adbg.annotation.encoder
         rows, read_ids, wpr, present, n_present = self._present(seqs)
-        R = len(seqs)
-        if m.values is None:
-            vals_sum = bin_sum = self._sum_present(rows, read_ids, present, R)
-        else:
-            vals_sum = self._sum_present(rows, read_ids, present, R,
-                                         m.values)
-            bin_sum = self._sum_present(rows, read_ids, present, R,
-                                        m.values > 0)
+        vals_sum, bin_sum = self._read_sums(
+            rows, read_ids, present, len(seqs), lambda v: v,
+            lambda v: (v > 0).to(torch.int64))
         out = []
         for r, s in enumerate(seqs):
             min_count = max(1, math.ceil(presence_ratio * wpr[r]))
@@ -260,16 +245,14 @@ class BatchQuery:
         """--print-signature: per read, (label, k-mer presence mask) of
         the labels present in at least min_count windows, by (count
         desc, code asc)."""
-        m = self.adbg.annotation.matrix
         C = self.adbg.num_labels
         enc = self.adbg.annotation.encoder
         rows, _, wpr = self._map_batch(seqs)
         present = rows >= 0
-        uniq_t, inv = self._unique_rows(rows, present)
-        pres = (m.presence(uniq_t).cpu().numpy() if uniq_t is not None
-                else np.zeros((0, C), bool))
+        where = np.nonzero(present)[0]
         sig_all = np.zeros((len(rows), C), bool)
-        sig_all[np.nonzero(present)[0]] = pres[inv]
+        for w, c, _ in self._window_hits(rows, present):
+            sig_all[where[w.cpu().numpy()], c.cpu().numpy()] = True
         bounds = np.concatenate([[0], np.cumsum(wpr)])
         out = []
         for r, s in enumerate(seqs):
@@ -285,6 +268,41 @@ class BatchQuery:
             out.append([(enc.decode(c), sig[:, c]) for c, _ in pairs])
         return out
 
+    def get_kmer_coordinates_batch(self, seqs: Sequence[bytes],
+                                   num_top_labels: int = 2 ** 62,
+                                   presence_ratio: float = 0.0
+                                   ) -> List[List[Tuple[str, List[List[int]]]]]:
+        """--query-coords: per read and label present in at least
+        min_count windows (by (count desc, code asc), the first
+        ``num_top_labels``), one ascending coordinate list per window
+        (empty where the window is absent or lacks the label). One
+        batched fetch of the batch's unique rows (anchor walks included)
+        serves every read and label."""
+        m = self.adbg.annotation.matrix
+        if not hasattr(m, "tuples_for_rows"):
+            raise ValueError("coordinate queries need a coordinate "
+                             "annotation (annotate --coordinates)")
+        enc = self.adbg.annotation.encoder
+        rows, read_ids, wpr, present, n_present = self._present(seqs)
+        counts = self._counts(rows, read_ids, present, len(seqs))
+        rec = m.tuples_for_rows(rows[present])
+        bounds = np.concatenate([[0], np.cumsum(wpr)])
+        out = []
+        for r, s in enumerate(seqs):
+            min_count = max(1, math.ceil(presence_ratio * wpr[r]))
+            if len(s) < self.adbg.graph.k or n_present[r] < min_count:
+                out.append([])
+                continue
+            codes = np.nonzero(counts[r] >= min_count)[0]
+            pairs = sorted(((int(c), int(counts[r][c])) for c in codes),
+                           key=lambda p: (-p[1], p[0]))[:num_top_labels]
+            rrows = rows[bounds[r]:bounds[r + 1]].tolist()
+            out.append([(enc.decode(c),
+                         [rec[q].get(c, np.zeros(0, np.int64)).tolist()
+                          if q >= 0 else [] for q in rrows])
+                        for c, _ in pairs])
+        return out
+
     def get_label_count_quantiles_batch(self, seqs: Sequence[bytes],
                                         num_top_labels: int = 2 ** 62,
                                         presence_ratio: float = 0.0,
@@ -294,23 +312,18 @@ class BatchQuery:
         min_count windows, the quantiles of its values over the read's
         windows, zeros (absent windows) first; labels by (windows desc,
         code asc). Without values each present window counts 1."""
-        m = self.adbg.annotation.matrix
         C = self.adbg.num_labels
         enc = self.adbg.annotation.encoder
         rows, read_ids, wpr, present, n_present = self._present(seqs)
-        rid = read_ids[present]
-        uniq_t, inv = self._unique_rows(rows, present)
-        if uniq_t is None:
-            wv = np.zeros((0, C), np.int64)
-        else:
-            dense = (m.values_dense(uniq_t) if m.values is not None
-                     else m.presence(uniq_t))
-            wv = dense.cpu().numpy().astype(np.int64)[inv]
-        # (read, label, value) records of every present window, grouped
-        # by (read, label) with the values ascending
-        wq, wc = np.nonzero(wv)
-        owner = rid[wq]
-        vals = wv[wq, wc]
+        # (read, label, value) records of every present window's non-zero
+        # entries, grouped by (read, label) with the values ascending
+        hits = [tuple(x.cpu().numpy() for x in h)
+                for h in self._window_hits(rows, present)]
+        wq, wc, vals = (np.concatenate([h[i] for h in hits]
+                                       + [np.zeros(0, np.int64)])
+                        for i in range(3))
+        nz = vals != 0
+        owner, wc, vals = read_ids[present][wq[nz]], wc[nz], vals[nz]
         order = np.lexsort((vals, wc, owner))
         owner, wc, vals = owner[order], wc[order], vals[order]
         key = owner * (C + 1) + wc
@@ -352,38 +365,19 @@ def _top_pairs(enc, select_counts, counts, min_count: int,
     return [(enc.decode(c), n) for c, n in pairs]
 
 
-def _batch_sum_rows(m: RowSparse, rows: torch.Tensor,
-                    read_ids: torch.Tensor, num_reads: int,
-                    cap: int, weights: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
-    """(R, C) sums: interval-expand the matrix hits of each row, keyed by
-    read, summed with one ``index_add_`` (the segment sum). Each hit adds
-    its entry's ``weights`` value, or 1 without ``weights``."""
-    out = torch.zeros((num_reads * m.num_cols,), dtype=torch.int64,
-                      device=rows.device)
-    if rows.shape[0] and cap:
-        lo, hi = m.row_ranges(rows)
-        q, flat, valid = _expand_intervals(lo, hi, cap)
-        fc = torch.clamp(flat, 0, max(m.nnz - 1, 0))
-        key = read_ids.to(torch.int64)[q] * m.num_cols + m.cols[fc].long()
-        w = (valid.to(torch.int64) if weights is None
-             else torch.where(valid, weights[fc].to(torch.int64), 0))
-        out.index_add_(0, key, w)
-    return out.view(num_reads, m.num_cols)
-
-
 def annotate_sequences(graph: DbgSuccinct,
                        items: Sequence[Tuple[bytes, Sequence[str]]],
                        annotator: Optional[ColumnAnnotator] = None,
                        with_counts: bool = False) -> ColumnAnnotator:
     """Build a column annotation from (sequence, labels) pairs: map each
-    sequence's windows to nodes and set its labels on every present row.
-    ``graph`` is a ``DbgSuccinct`` or a ``CanonicalDbg``."""
+    sequence's windows to nodes (all sequences in a few batched calls)
+    and set its labels on every present row. ``graph`` is a
+    ``DbgSuccinct`` or a ``CanonicalDbg``."""
     if annotator is None:
         annotator = ColumnAnnotator(num_rows=graph.num_anno_rows(),
                                     device=graph.device)
-    for seq, labels in items:
-        nodes = graph.map_to_nodes(seq)
+    for (_, labels), nodes in zip(items, map_sequences(
+            graph, [seq for seq, _ in items])):
         rows = graph.node_to_anno_row(nodes[nodes > 0])
         if with_counts:
             uniq, cnt = np.unique(rows, return_counts=True)

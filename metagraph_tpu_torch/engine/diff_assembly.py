@@ -5,7 +5,10 @@ PyTorch counterpart of ``metagraph_tpu/engine/diff_assembly.py``
 unitigs (or nodes) whose annotation matches a foreground / background
 label contrast, then the masked graph is assembled. The in / out /
 other label counts per node or unitig are bincounts over the
-annotation's (row, col) pairs on the device.
+annotation's (row, col) pairs on the device: those of its logical
+matrix, whatever its representation (the JAX package reads the
+``rows`` / ``cols`` fields of the column form, and fails on, or for
+IntRowDiff misreads, the others: a fault of the reference, repaired).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ def _codes(adbg: AnnotatedDbg, labels_in, labels_out):
 def _per_node_group_counts(adbg: AnnotatedDbg, codes_in, codes_out):
     """(N+1,) counts of in / out / other labels per node (one pass over
     the matrix)."""
-    m = adbg.annotation.matrix
+    m = adbg.annotation.matrix.to_row_sparse()
     N = adbg.graph.num_nodes()
     grp = _label_groups(m, codes_in, codes_out, m.cols.to(torch.int64))
     node = m.rows.to(torch.int64) + 1
@@ -76,7 +79,7 @@ def mask_nodes_by_unitig_labels(adbg: AnnotatedDbg,
     the other labels make <= other_fraction of those seen."""
     codes_in, codes_out = _codes(adbg, labels_in, labels_out)
     u = unitig_decomposition(adbg.graph)
-    m = adbg.annotation.matrix
+    m = adbg.annotation.matrix.to_row_sparse()
     cols = m.cols.to(torch.int64)
     cid = u.chain_id[m.rows.to(torch.int64) + 1]
     # distinct (unitig, label) pairs

@@ -377,3 +377,34 @@ class DbgSuccinct:
 
     def node_sequence(self, node: int) -> str:
         return self.alphabet.decode(self.node_kmers_chars([node])[0])
+
+
+# codes per mapping call of ``map_sequences``: bounds its temporaries
+_MAP_CHUNK = 1 << 24
+
+
+def map_sequences(graph, seqs) -> list:
+    """Node ids of the windows of each sequence (what ``map_to_nodes``
+    gives for each), from one ``map_codes_to_nodes`` call per chunk of
+    about 2^24 codes: the sequences are concatenated with one INVALID
+    separator each, so no window straddles two. ``graph`` is a
+    ``DbgSuccinct`` or a ``CanonicalDbg``."""
+    k = graph.k
+    out = []
+    i = 0
+    while i < len(seqs):
+        j, size = i, 0
+        while j < len(seqs) and (j == i or size + len(seqs[j]) < _MAP_CHUNK):
+            size += len(seqs[j]) + 1
+            j += 1
+        batch = seqs[i:j]
+        codes = encode_sequences(batch, graph.alphabet)
+        nodes = (graph.map_codes_to_nodes(torch.from_numpy(codes).to(
+            graph.device)).cpu().numpy().astype(np.int32)
+            if len(codes) >= k else np.zeros(0, np.int32))
+        off = 0
+        for s in batch:
+            out.append(nodes[off:off + max(0, len(s) - k + 1)])
+            off += len(s) + 1
+        i = j
+    return out

@@ -81,10 +81,13 @@ def _next_links(g):
     return nxt, prv
 
 
-def _rank_chains(prv: torch.Tensor):
-    """Pointer doubling over ``prv``: each slot's chain start, its
-    position, and whether it lies on a pure cycle (broken at its
-    minimum id)."""
+def rank_chains(prv: torch.Tensor):
+    """Pointer doubling over ``prv`` (0 = no link): each slot's chain
+    root, its distance to it, and whether it lies on a pure cycle (broken
+    at its minimum id, whose link is dropped: distance 0 marks the roots).
+    ceil(log2(N1)) rounds, enough for the longest chain and cycle; the
+    JAX package's RowDiff anchors run ceil(log2(N1 + 1)), which gives the
+    same result. Also the RowDiff successor forest (``anno/row_diff.py``)."""
     N1 = prv.shape[0]
     steps = max(1, int(np.ceil(np.log2(max(N1, 2)))))
     ids = torch.arange(N1, device=prv.device)
@@ -106,7 +109,7 @@ def _rank_chains(prv: torch.Tensor):
 
 def unitig_decomposition(g) -> Unitigs:
     _, prv = _next_links(g)
-    start_of, pos, in_cycle = _rank_chains(prv)
+    start_of, pos, in_cycle = rank_chains(prv)
     N1 = prv.shape[0]
     dev = prv.device
     is_start = torch.zeros((N1,), dtype=torch.bool, device=dev)
@@ -340,7 +343,7 @@ def contig_sequences(g, return_paths: bool = False):
     prv = torch.zeros((U + 1,), dtype=torch.int64, device=dev)
     tails = torch.nonzero(next_chain >= 0).squeeze(1)
     prv[next_chain[tails] + 1] = tails + 1
-    root, rank, on_cycle = _rank_chains(prv)
+    root, rank, on_cycle = rank_chains(prv)
     root, rank, on_cycle = root[1:] - 1, rank[1:], on_cycle[1:]
     live = (torch.ones((U,), dtype=torch.bool, device=dev) if mask is None
             else mask[u.starts])

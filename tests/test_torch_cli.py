@@ -326,7 +326,8 @@ def test_query_align_identical(fasta, capsys, mode):
     ["merge", "--num-shards", "2", "-o", "m", "g1", "g2"],
     ["build", "-k", "11", "--suffix", "A", "x.fa"],
     ["build", "-k", "11", "--suffix-len", "2", "x.fa"],
-    ["query", "-i", "g", "-a", "a", "--query-coords", "q.fa"],
+    ["transform_anno", "--anno-type", "row_diff", "-i", "g", "--disk-swap",
+     "swap", "-o", "o", "a.column.annodbg.npz"],
 ])
 def test_unported_exits_nonzero(argv, capsys):
     with pytest.raises(SystemExit) as e:

@@ -715,3 +715,77 @@ def test_traversal_cuda_equals_cpu(dev, mode, tmp_path):
         got, want = (clean_node_mask(x, min_count=2, prune_unitigs=3,
                                      min_tip_size=30) for x in gs)
         assert torch.equal(got.cpu(), want)
+
+
+ANNO_FORMS = ["row_diff", "int_row_diff", "row_diff_brwt", "brwt",
+              "relaxed_brwt", "int_brwt", "row_diff_int_brwt", "unique_row",
+              "rb_brwt", "coord", "tuple_row_diff"]
+
+
+@pytest.mark.parametrize("form", ANNO_FORMS)
+def test_anno_forms_cuda_equal_cpu(dev, form, tmp_path):
+    """Every compressed and coordinate form of an annotation of a 2^15-code
+    graph (read breaks, repeats) built on the card has the CPU build's
+    arrays and answers the batched query alike; the row-diff builds
+    launch the sort and partition kernels."""
+    from metagraph_tpu_torch.anno import brwt, coords, int_brwt, row_diff
+    from metagraph_tpu_torch.anno.unique_row import UniqueRow
+    from metagraph_tpu_torch.engine.annotated_dbg import (
+        AnnotatedDbg, BatchQuery, annotate_sequences)
+    from metagraph_tpu_torch.graph import io as graph_io
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    rng = np.random.default_rng(50)
+    codes = rng.integers(1, 5, 1 << 15).astype(np.uint8)
+    codes[rng.integers(0, len(codes), 40)] = 255
+    codes[9000:9300] = codes[1000:1300]
+    g = DbgSuccinct.from_boss(build_boss_from_codes(codes, 15, device="cpu"))
+    p = graph_io.save_graph(str(tmp_path / "g"), g)
+    gs = [graph_io.load_graph(p, device=d) for d in (dev, "cpu")]
+    text = np.frombuffer(b"$ACGT", np.uint8)[np.where(codes == 255, 0,
+                                                      codes)].tobytes()
+    recs = [text[i:i + 800] for i in range(0, len(text), 800)]
+    items = [(r, [f"l{i % 5}"]) for i, r in enumerate(recs)]
+    build = {
+        "row_diff": lambda m, x: row_diff.build_row_diff(m, x, 16),
+        "int_row_diff": lambda m, x: row_diff.build_int_row_diff(m, x, 16),
+        "row_diff_brwt": lambda m, x: row_diff.build_row_diff_brwt(m, x, 16),
+        "brwt": lambda m, x: brwt.build_brwt(m, subsample=5000),
+        "relaxed_brwt": lambda m, x: brwt.relax_brwt(brwt.build_brwt(m), 4),
+        "int_brwt": lambda m, x: int_brwt.build_int_brwt(m),
+        "row_diff_int_brwt": lambda m, x: int_brwt.build_int_row_diff_brwt(
+            m, x, 16),
+        "unique_row": lambda m, x: UniqueRow.from_row_sparse(m),
+        "rb_brwt": lambda m, x: UniqueRow.from_row_sparse(m)
+        .with_brwt_distinct(),
+        "coord": lambda m, x: m,
+        "tuple_row_diff": lambda m, x: coords.build_tuple_row_diff(m, x, 16),
+    }[form]
+    anns = []
+    for x in gs:
+        if form in ("coord", "tuple_row_diff"):
+            a = coords.annotate_coordinates(x, items).finalize()
+        else:
+            a = annotate_sequences(x, items,
+                                   with_counts="int" in form).finalize()
+        merge.sort_launches = merge.partition_launches = 0
+        a.matrix = build(a.matrix, x)
+        if x is gs[0] and ("row_diff" in form or form == "int_row_diff"):
+            assert merge.sort_launches > 0 and merge.partition_launches > 0
+        anns.append(a)
+    want = anns[1].matrix.to_npz_dict()
+    got = anns[0].matrix.to_npz_dict()
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert np.array_equal(got[key], want[key]), key
+    reads = [recs[int(i)][50:150] for i in rng.integers(0, len(recs), 150)]
+    reads += [bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 100))
+              for _ in range(50)]
+    bqs = [BatchQuery(AnnotatedDbg(graph=x, annotation=a))
+           for x, a in zip(gs, anns)]
+    assert bqs[0].get_top_labels_batch(reads, with_kmer_counts=True) == \
+        bqs[1].get_top_labels_batch(reads, with_kmer_counts=True)
+    if form in ("coord", "tuple_row_diff"):
+        assert bqs[0].get_kmer_coordinates_batch(reads[:40]) == \
+            bqs[1].get_kmer_coordinates_batch(reads[:40])
