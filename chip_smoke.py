@@ -68,7 +68,8 @@ Phases (each raises on failure; the process exits non-zero):
         DNA5 k = 31 canonical (the 2^25 codes, 1 % N) and DNACaseSent
         k = 31 primary (alternate runs of 1000 in lower case): stats
         --validate at full size, CUDA = CPU on 2^18 codes. In 3a: the
-        k = 20 graph saved small (a smaller file), its 2^15 reads' labels,
+        k = 20 graph saved small (a smaller file than the fast one,
+        which the script stores without zlib), its 2^15 reads' labels,
         3b's first 2^12 alignments and every row's decode identical to
         the fast state's.
      g. the graph algorithms. At k = 31 canonical on the 2^25 codes,
@@ -99,13 +100,28 @@ Phases (each raises on failure; the process exits non-zero):
         (a linkage product over 10^6 sampled rows); the label_{i % 10}
         coordinates (annotate_coordinates) as column_coord and
         row_diff_coord. Per form: transform seconds, stored nnz against
-        the column's, file bytes, query reads/s against the column form's
-        (2^15 reads for row_diff and row_diff_brwt, 2^13 for the rest)
-        and peak device memory. Checks: each form answers as its column
+        the column's, query reads/s against the column form's (2^15
+        reads for row_diff and row_diff_brwt, 2^13 for the rest) and
+        peak device memory (the forms' files are not written: their
+        bytes are fixed by the data and format, PERF.md). Checks: each
+        form answers as its column
         form read for read (labels; --query-counts and quantiles;
         coordinates, which equal a numpy gold), the row-diff builds
         launch sort_packed and partition_compact, and at a 2^18-code
         prefix every form built on the card equals the CPU build.
+     i. the scale-out builds, each held bit for bit against 3a's
+        in-core graphs: build_boss_out_of_core at k = 20 basic over 8
+        shards and 4 pass-1 runs of 2^23 + 64 codes (its peak device
+        memory at most half of 3a's in-core k = 20 peak, both measured in
+        this run); build_boss_streaming at k = 31 canonical with its runs
+        spilled to a directory (2^23-code chunks, as build --disk-swap
+        --mem-cap-gb 0.125); build_boss_sharded at k = 20 with suffix
+        length 2 (16 buckets through the suffix filter); the out-of-core
+        merge (4 shards) of 3g's two halves against their in-memory
+        merge; in 3a, after 3h: the staged row_diff (transform_anno
+        --disk-swap, build_row_diff_staged, a 128 MiB spill cap that
+        makes 2 runs) of 3a's label_{i % 10} annotation, equal to 3h's
+        in-memory row_diff. The three build kernels must launch there.
   4. the CLI (build, stats and align in processes of their own, the
      rest through its main in this process): build, annotate, query,
      query --align, align (TSV and --json) and stats with --device
@@ -121,7 +137,12 @@ Phases (each raises on failure; the process exits non-zero):
      query and align equal the fast graph's; then the annotation
      commands on the canonical graph: transform_anno to seven forms,
      relax_brwt, merge_anno, coordinate, query over each (labels,
-     --query-counts, --query-coords) and stats.
+     --query-counts, --query-coords) and stats; then the scale-out
+     commands on the card and the CPU: build --suffix-len 1
+     --parts-total 2 --part-idx 0/1 with concatenate, build --disk-swap,
+     build --num-shards 4, merge --num-shards 2, coordinator with two
+     worker processes (card), build --reference from a VCF and its
+     .vcf.gz, each graph's stats equal to the direct build's.
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -143,8 +164,11 @@ SEED = 0
 PROTEIN_LETTERS = b"ACDEFGHIKLMNPQRSTVWY"
 
 
+T_START = time.time()
+
+
 def log(msg):
-    print(msg, flush=True)
+    print(f"[{time.time() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, reps=5):
@@ -688,18 +712,20 @@ def fwd_kmer_ints(codes, K):
     c = codes.astype(np.uint64) - np.uint64(1)
     nw = len(c) - K + 1
     fwd = np.zeros(nw, np.uint64)
-    for j in range(K):
-        fwd = (fwd << np.uint64(2)) | c[j:j + nw]
+    for j in range(K):                  # in place: no array per step
+        np.left_shift(fwd, np.uint64(2), out=fwd)
+        np.bitwise_or(fwd, c[j:j + nw], out=fwd)
     return fwd
 
 
 def rc_kmer_ints(codes, K):
     """2-bit integers of the reverse complements of every window."""
-    c = codes.astype(np.uint64) - np.uint64(1)
+    c = np.uint64(4) - codes.astype(np.uint64)      # the complement
     nw = len(c) - K + 1
     rc = np.zeros(nw, np.uint64)
-    for j in range(K - 1, -1, -1):
-        rc = (rc << np.uint64(2)) | (np.uint64(3) - c[j:j + nw])
+    for j in range(K - 1, -1, -1):      # in place: no array per step
+        np.left_shift(rc, np.uint64(2), out=rc)
+        np.bitwise_or(rc, c[j:j + nw], out=rc)
     return rc
 
 
@@ -804,9 +830,11 @@ def phase_main_path(dev):
         boss, cold = timed_build(codes, K, mode, dev)
         del boss
         torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         boss, warm = timed_build(codes, K, mode, dev)
-        peak = torch.cuda.max_memory_allocated() / 2**30
+        peak_bytes = torch.cuda.max_memory_allocated() - base
+        peak = peak_bytes / 2**30
         real = check_graph(boss, codes, K, mode)
         rate = (N_CODES - K + 1) / warm
         log(f"build k={K} {mode} 2^25 codes: {boss.num_edges} edges, "
@@ -814,6 +842,10 @@ def phase_main_path(dev):
             f"{warm:.3f} s = {rate / 1e6:.2f} M k-mers/s; peak device "
             f"memory {peak:.1f} GiB")
         results[K] = (warm, rate)
+        # phase 3i holds its scale-out builds against these arrays
+        results[K, "ref"] = host_boss(boss)
+        results[K, "peak_bytes"] = peak_bytes
+        results[K, "warm"] = warm
         if K == 31:
             del boss
             torch.cuda.empty_cache()
@@ -891,12 +923,23 @@ def phase_main_path(dev):
                        "phase 3g on the k=20 graph")
         log(f"3g launch counts on the k=20 graph's paths: "
             f"{surface['graph launches']}")
-        surface["anno launches"], surface["anno"] = phase_anno(
+        surface["anno launches"], surface["anno"], rd_ref = phase_anno(
             graph, ann, cnt_ann, codes, records, labels, reads, tmp)
         del cnt_ann
-    align_launches = (align_launches, align_rates)
-    del graph, boss, ann, bq
-    torch.cuda.empty_cache()
+        results["3i row_diff"] = scaleout_row_diff(graph, tmp, rd_ref,
+                                                   ann.matrix.nnz)
+        del rd_ref
+        align_launches = (align_launches, align_rates)
+        del graph, boss, ann, bq
+        torch.cuda.empty_cache()
+    cuda_equals_cpu(dev, rng)
+    return launches, align_launches, results, surface
+
+
+def cuda_equals_cpu(dev, rng):
+    """3a and 3b at small sizes: the card's builds and alignments equal
+    the CPU's."""
+    import torch
 
     # the whole build, CUDA against CPU, array for array
     small = np.random.default_rng(SEED + 1).integers(
@@ -917,7 +960,6 @@ def phase_main_path(dev):
     log("build at 2^16 codes: CUDA W, last, F, NF, weights, edge_lanes "
         "equal the CPU build (k=20 basic, k=31 canonical)")
     check_align_cuda_cpu(dev)
-    return launches, align_launches, results, surface
 
 
 # ---------------------------------------------------------------------------
@@ -961,9 +1003,9 @@ def gz_text(path):
         return f.read()
 
 
-def cli_logged(device):
+def cli_logged(device, zlib=True):
     """The in-process CLI runner, returning (stdout, stderr)."""
-    run = cli_in_process(device)
+    run = cli_in_process(device, zlib)
 
     def logged(*argv):
         err = io.StringIO()
@@ -1019,7 +1061,8 @@ def graph_assemble(dev):
         raise AssertionError("3g assemble: unitigs do not hold every node")
     with tempfile.TemporaryDirectory() as tmp:
         def fasta_out():
-            with FastaWriter(os.path.join(tmp, "u.fasta.gz")) as w:
+            # plain text: gzip of 67 M characters is ≈ 11 s of host zlib
+            with FastaWriter(os.path.join(tmp, "u.fasta")) as w:
                 for s in seqs:
                     w.write(s)
         timed_sync(t, "unitig FASTA write", fasta_out)
@@ -1102,8 +1145,9 @@ def graph_clean(dev):
     --count-slice-quantiles "0 0.5 1". The kept genome and error k-mers
     against a numpy gold; the CLI's files on the card byte-identical to
     the CPU run on the first 2^14 reads. Returns numbers to report."""
-    run = cli_logged("cuda")
-    run_cpu = cli_logged("cpu")
+    # 3g's files are scratch: stored without zlib (np.load reads both)
+    run = cli_logged("cuda", zlib=False)
+    run_cpu = cli_logged("cpu", zlib=False)
     genome, reads = clean_reads(np.random.default_rng(SEED + 30), N_CODES)
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1225,8 +1269,9 @@ def graph_diff_assembly(graph, ann, records, labels, tmp, fast_path):
             not np.array_equal(np.sort(got_u), gold_u):
         raise AssertionError("3g diff assembly by unitigs differs from gold")
     anno = os.path.join(tmp, "anno.column.annodbg.npz")
-    ann.save(anno)
-    run = cli_in_process("cuda")
+    with stored_uncompressed():
+        ann.save(anno)
+    run = cli_in_process("cuda", zlib=False)
     t0 = time.time()
     run("assemble", "-i", fast_path, "-a", anno, "--label-mask-in",
         "label_0", "--label-mask-out", "label_1", "--unitigs", "-o",
@@ -1269,7 +1314,7 @@ def graph_k20_cli(graph, aln_reads, tmp, fast_path, dev):
     successors)."""
     import torch
     from metagraph_tpu_torch.graph import traversal as tt
-    run = cli_in_process("cuda")
+    run = cli_in_process("cuda", zlib=False)
     t = {}
 
     def p(name):
@@ -1378,8 +1423,8 @@ def graph_extend_merge(dev):
     equals the CPU run on the first 2^16 codes. Returns the launches."""
     from metagraph_tpu_torch.graph.boss_construct import build_boss
     from metagraph_tpu_torch.graph.io import load_graph
-    run = cli_in_process("cuda")
-    run_cpu = cli_in_process("cpu")
+    run = cli_in_process("cuda", zlib=False)
+    run_cpu = cli_in_process("cpu", zlib=False)
     codes = np.random.default_rng(SEED).integers(1, 5, N_CODES).astype(
         np.uint8)[:EXTEND_CODES]
     recs = split_records(codes, 1000)
@@ -1542,16 +1587,6 @@ def coord_gold(codes, K, n_rec, reads, ratio=0.7):
     for label in range(10):
         sel = np.nonzero(lab == label)[0]
         off[sel] = np.concatenate([[0], np.cumsum(nwin[sel])[:-1]])
-    fwd = fwd_kmer_ints(codes, K)
-    pos = np.arange(len(fwd))
-    r_of = np.searchsorted(bounds, pos, side="right") - 1
-    inside = pos + K <= bounds[r_of + 1]
-    keys, r_in = fwd[inside], r_of[inside]
-    coord = off[r_in] + pos[inside] - bounds[r_in]
-    order = np.argsort(keys)
-    keys, lab_s, coord = keys[order], lab[r_in][order], coord[order]
-    # every window is a node: the records' and the few across boundaries
-    across = np.sort(fwd[~inside])
     # every read's window k-mers at once: (R, W)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     c = np.searchsorted(acgt, np.frombuffer(b"".join(reads), np.uint8)
@@ -1560,6 +1595,27 @@ def coord_gold(codes, K, n_rec, reads, ratio=0.7):
     q = np.zeros((len(reads), W), np.uint64)
     for j in range(K):
         q = (q << np.uint64(2)) | c[:, j:j + W]
+    fwd = fwd_kmer_ints(codes, K)
+    # the windows across a record boundary are nodes with no label
+    cross = np.zeros(len(fwd), bool)
+    starts = (bounds[1:-1, None] - np.arange(1, K)[None, :]).ravel()
+    cross[starts[(starts >= 0) & (starts < len(fwd))]] = True
+    across = np.sort(fwd[cross])
+    # only the windows whose k-mer some read holds matter to the answer:
+    # a table of the reads' low 26 bits passes a few candidates to the
+    # exact search
+    uq = np.unique(q)
+    low = np.uint64((1 << 26) - 1)
+    table = np.zeros(1 << 26, bool)
+    table[(uq & low).astype(np.int64)] = True
+    cand = np.nonzero(table[(fwd & low).astype(np.int64)] & ~cross)[0]
+    at = np.minimum(np.searchsorted(uq, fwd[cand]), len(uq) - 1)
+    pos = cand[uq[at] == fwd[cand]]
+    r_in = np.searchsorted(bounds, pos, side="right") - 1
+    keys = fwd[pos]
+    coord = off[r_in] + pos - bounds[r_in]
+    order = np.argsort(keys)
+    keys, lab_s, coord = keys[order], lab[r_in][order], coord[order]
     lo = np.searchsorted(keys, q.ravel(), side="left")
     hi = np.searchsorted(keys, q.ravel(), side="right")
     n_occ = hi - lo
@@ -1644,14 +1700,16 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
     1000 records: label_{i % 10} (3a's), their k-mer counts (3e's),
     rec_{i} and the label_{i % 10} coordinates (annotated here). Each
     form is converted on the card (time, stored nnz against the column's,
-    file bytes, query reads/s against the column form's, peak device
-    memory) and checked: labels equal the column's read for read; the
-    count forms' --query-counts and quantiles the count annotation's;
-    coordinates a numpy gold; the row-diff builds launch sort_packed and
-    partition_compact. Returns the launch counts of the conversions and
-    queries, and the per-form rows."""
+    query reads/s against the column form's, peak device memory) and
+    checked: labels equal the column's read for read; the count forms'
+    --query-counts and quantiles the count annotation's; coordinates a
+    numpy gold; the row-diff builds launch sort_packed and
+    partition_compact. The files are not written (their bytes are fixed
+    by the data and the format: PERF.md §6), but for the label
+    column that phase 3i converts on disk. Returns the launch counts of
+    the conversions and queries, the per-form rows and the in-memory
+    row_diff of the labels."""
     import torch
-    from concurrent.futures import ThreadPoolExecutor
     from metagraph_tpu_torch.anno import brwt, coords, int_brwt, row_diff
     from metagraph_tpu_torch.anno import unique_row
     from metagraph_tpu_torch.anno.annotator import Annotation
@@ -1679,14 +1737,8 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
     t_phase = time.time()
     zero_launches()
     small = reads[:ANNO_SMALL_READS // 2] + reads[-ANNO_SMALL_READS // 2:]
-    pool = ThreadPoolExecutor(6)
-    sizes = {}
-
-    def save(name, a):
-        path = os.path.join(tmp, f"h.{name}.annodbg.npz")
-        sizes[name] = pool.submit(
-            lambda: (a.save(path), os.path.getsize(path))[1])
-
+    with stored_uncompressed():
+        ann.save(os.path.join(tmp, "h.labels.column.annodbg.npz"))
     items = [(s, [lab]) for s, lab in zip(records, labels)]
     rec_ann, t_rec = timed(lambda: annotate_sequences(
         graph, [(s, [f"rec_{i}"]) for i, s in enumerate(records)])
@@ -1699,9 +1751,6 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
     sources = {"labels": ann, "counts": cnt_ann, "records": rec_ann,
                "coords": crd_ann}
     forms = anno_forms(row_diff, brwt, int_brwt, unique_row, coords, graph)
-    # the column files first: zlib of the largest runs beside the whole loop
-    for src, source in sources.items():
-        save(f"{src}.column", source)
     rows, launches = [], read_launches()
     for src, source in sources.items():
         query = anno_queries(bq_of, src)
@@ -1714,8 +1763,8 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
             (col_out[n_reads], dt), col_out[n_reads, "peak"] = peak_of(
                 timed, query, source, rs)
             col_out[n_reads, "rate"] = n_reads / dt
-        t_gold = time.time()
         if src == "coords":
+            t_gold = time.time()
             gold = coord_gold(codes, graph.k, len(records), small)
             log(f"3h coordinates: the numpy gold of {len(small)} reads in "
                 f"{time.time() - t_gold:.1f} s (host)")
@@ -1732,14 +1781,12 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
                 check_launched(built, ("sort_packed", "partition_compact"),
                                f"the {name} build")
             a = Annotation(matrix=m, encoder=source.encoder)
-            if m is source.matrix:      # column_coord: the column file
-                sizes[f"{src}.{name}"] = sizes[f"{src}.column"]
-            else:
-                save(f"{src}.{name}", a)
             n_reads = (len(reads) if name in ("row_diff", "row_diff_brwt")
                        else ANNO_SMALL_READS)
             rs = reads if n_reads == len(reads) else small
             query(a, rs[:256])
+            if (src, name) == ("labels", "row_diff"):
+                rd_ref = m.to_npz_dict()        # phase 3i's staged build
             (got, dt), q_peak = peak_of(timed, query, a, rs)
             if got != col_out[n_reads]:
                 bad = next(i for i, (x, y) in enumerate(
@@ -1755,24 +1802,16 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
                              build_launches=built))
             del a, m
     launches = launch_delta(launches)
-    t_wait = time.time()
     for row in rows:
-        row["bytes"] = sizes[f"{row['source']}.{row['form']}"].result()
-        row["col_bytes"] = sizes[f"{row['source']}.column"].result()
         log(f"3h {row['source']} -> {row['form']}: transform "
             f"{row['seconds']:.3f} s; nnz {row['nnz']} = "
             f"{row['nnz'] / max(row['col_nnz'], 1):.4f} of the column's "
-            f"{row['col_nnz']}; file {row['bytes']} B (column "
-            f"{row['col_bytes']}); query {row['rate']:.0f} reads/s over "
+            f"{row['col_nnz']}; query {row['rate']:.0f} reads/s over "
             f"{row['reads']} reads (column {row['col_rate']:.0f}); peak "
             f"{row['peak_gib']:.2f} GiB in the transform, "
             f"{row['query_peak_gib']:.2f} GiB in the query (column "
             f"{row['col_query_peak_gib']:.2f}); build launches "
             f"{row['build_launches']}")
-    pool.shutdown()
-    log(f"3h files: the last written {time.time() - t_wait:.1f} s after the "
-        f"conversions (np.savez_compressed of {len(set(sizes.values()))} "
-        f"files in 6 threads)")
     log("3h checks: every binary form's labels equal the column form's "
         "read for read; the count forms' --query-counts and quantiles equal "
         "the count annotation's; the coordinates of both coordinate forms "
@@ -1783,7 +1822,209 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
     anno_cpu_parity(codes, graph.device)
     log(f"3h total {time.time() - t_phase:.1f} s (the CPU comparison "
         f"{time.time() - t_cpu:.1f} s)")
-    return launches, rows
+    return launches, rows, rd_ref
+
+
+# ---------------------------------------------------------------------------
+# phase 3i: the scale-out builds (suffix-sharded, streaming, out-of-core,
+# the out-of-core merge, the staged row-diff conversion)
+# ---------------------------------------------------------------------------
+
+OOC_CHUNK = (1 << 23) + (1 << 6)    # 4 pass-1 runs of the 2^25 codes
+STREAM_CHUNK = 1 << 23              # build --disk-swap --mem-cap-gb 0.125
+STAGED_MEM_CAP_MB = 128             # runs of 2^24 keys: 2 of 33.5 M entries
+
+
+@contextlib.contextmanager
+def stored_uncompressed():
+    """Files that ``np.savez_compressed`` writes inside stored without
+    zlib: the same arrays and keys, which ``np.load`` reads alike, with
+    no host zlib wait (the script's files are scratch)."""
+    real = np.savez_compressed
+    np.savez_compressed = np.savez
+    try:
+        yield
+    finally:
+        np.savez_compressed = real
+
+
+def host_boss(boss):
+    """A Boss's arrays on the host (edge_lanes where kept)."""
+    out = {name: getattr(boss, name).cpu() for name in ("W", "last", "F")}
+    for name in ("weights", "edge_lanes"):
+        x = getattr(boss, name)
+        out[name] = None if x is None else x.cpu()
+    return out
+
+
+def same_as_ref(boss, ref, what):
+    import torch
+    got = host_boss(boss)
+    for name, want in ref.items():
+        if name == "edge_lanes" and got[name] is None:
+            continue                    # the small state keeps none
+        a = got[name]
+        if (a is None) != (want is None) or (
+                a is not None and not torch.equal(a, want)):
+            raise AssertionError(f"3i {what}: {name} differs from the "
+                                 f"in-core build's")
+
+
+def timed_peak(fn):
+    """(fn(), wall seconds, device bytes it peaked at over what was
+    allocated before it)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0, torch.cuda.max_memory_allocated() - base
+
+
+def scaleout_row_diff(graph, tmp, rd_ref, col_nnz):
+    """3i, staged row-diff: transform_anno --disk-swap's conversion
+    (``build_row_diff_staged``) of 3h's label_{i % 10} column file over
+    3a's k = 20 graph, with a spill cap that cuts the column into several
+    runs, merged on disk; equal to 3h's in-memory row_diff array for
+    array. The runs are counted as the conversion wrote them. Returns its
+    log line's numbers (it launches none of the kernels: its sorts and
+    searches are ``torch`` calls, as the JAX package's are numpy)."""
+    from metagraph_tpu_torch.anno.row_diff_disk import build_row_diff_staged
+    before = read_launches()
+    swap = os.path.join(tmp, "swap")
+    spilled = {}
+    (ann, secs, peak) = timed_peak(lambda: build_row_diff_staged(
+        [os.path.join(tmp, "h.labels.column.annodbg.npz")], graph, swap,
+        mem_cap_mb=STAGED_MEM_CAP_MB, spilled=spilled))
+    got = ann.matrix.to_npz_dict()
+    if sorted(got) != sorted(rd_ref) or any(
+            not np.array_equal(got[key], rd_ref[key]) for key in rd_ref):
+        raise AssertionError("3i staged row_diff differs from 3h's in-memory "
+                             "row_diff")
+    launches = launch_delta(before)
+    log(f"3i staged row_diff (--disk-swap, mem cap {STAGED_MEM_CAP_MB} MiB): "
+        f"{spilled['raw_runs']} raw runs spilled and merged for the "
+        f"{col_nnz} column entries, {spilled['diff_runs']} diff run(s); "
+        f"{ann.matrix.num_rows} rows, {ann.matrix.nnz} diffs: {secs:.2f} s, "
+        f"peak {peak / 2**30:.2f} GiB over the resident graph and "
+        f"annotations; equal to 3h's in-memory row_diff, array for array; "
+        f"launches {launches}")
+    if spilled["raw_runs"] < 2:
+        raise AssertionError(f"3i staged row_diff spilled "
+                             f"{spilled['raw_runs']} raw run(s), not >= 2")
+    return dict(seconds=secs, peak=peak, launches=launches, **spilled)
+
+
+def phase_scaleout(dev, ref):
+    """3i. The scale-out builds at the main path's full width, the 2^25
+    codes of 3a, each held bit for bit against 3a's in-core graphs:
+    out-of-core k = 20 basic (8 shards, 4 pass-1 runs; its peak at most
+    half of 3a's in-core k = 20 peak), streaming k = 31 canonical with
+    runs spilled to disk (2^23-code chunks, build --disk-swap
+    --mem-cap-gb 0.125), suffix-sharded k = 20 basic (suffix length 2,
+    16 buckets through the suffix filter), and the out-of-core merge of
+    3g's halves against their in-memory merge. The comparison's own
+    graphs (the halves and their in-memory merge) are built before the
+    launch counters are zeroed; each entry's launches are read around it
+    alone and each must launch all three build kernels. Returns the
+    launch counts of the entries together."""
+    import torch
+    from metagraph_tpu_torch.cli.main import _real_edges, _rebuild
+    from metagraph_tpu_torch.graph.boss_construct import build_boss
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    from metagraph_tpu_torch.kmer.alphabets import DNA
+    from metagraph_tpu_torch.parallel.outofcore import (
+        build_boss_out_of_core, merge_boss_graphs_out_of_core)
+    from metagraph_tpu_torch.parallel.sharded_build import build_boss_sharded
+    from metagraph_tpu_torch.parallel.streaming import (build_boss_streaming,
+                                                        code_chunks)
+    codes = np.random.default_rng(SEED).integers(1, 5, N_CODES).astype(
+        np.uint8)                                   # phase 3a's codes
+    recs = split_records(codes[:EXTEND_CODES], 1000)
+    halves = [DbgSuccinct.from_boss(build_boss(h, 31, mode="canonical",
+                                               bits_per_count=8, device=dev),
+                                    DNA, "canonical")
+              for h in (recs[:500], recs[500:])]
+    parts = [_real_edges(g, True) for g in halves]
+    mem, _ = _rebuild([p[0] for p in parts], [p[1] for p in parts], 31, DNA,
+                      bits_per_count=31)
+    mem_ref = host_boss(mem)
+    del parts, mem, recs
+    zero_launches()
+    t_phase = time.time()
+    per_entry = {}
+
+    def entry(what, fn):
+        """fn() timed (``timed_peak``), its launches read around it."""
+        before = read_launches()
+        out = timed_peak(fn)
+        per_entry[what] = launch_delta(before)
+        check_launched(per_entry[what], BUILD_KERNELS, f"3i {what}")
+        return out
+
+    def n_runs(chunk, K):
+        return sum(1 for _ in code_chunks([codes], DNA, chunk, K))
+
+    (boss, valid), secs, peak = entry("out-of-core", lambda:
+                                      build_boss_out_of_core(
+        [codes], 20, n_shards=8, chunk_codes=OOC_CHUNK, return_valid=True,
+        device=dev))
+    same_as_ref(boss, ref[20, "ref"], "out-of-core k=20")
+    in_peak = ref[20, "peak_bytes"]
+    log(f"3i out-of-core k=20 basic, 8 shards, {n_runs(OOC_CHUNK, 20)} "
+        f"pass-1 runs of <= {OOC_CHUNK} codes: {boss.num_edges} edges = 3a's "
+        f"(W, last, F; small state); {secs:.2f} s (3a in-core warm "
+        f"{ref[20, 'warm']:.3f} s); peak {peak / 2**30:.3f} GiB against "
+        f"3a's in-core {in_peak / 2**30:.3f} GiB = {peak / in_peak:.3f}; "
+        f"launches {per_entry['out-of-core']}")
+    if peak > in_peak / 2:
+        raise AssertionError(f"3i out-of-core peak {peak} B is over half the "
+                             f"in-core peak {in_peak} B")
+    n_real = int(valid.sum())
+    del boss, valid
+
+    with tempfile.TemporaryDirectory(dir=HERE) as swap:
+        boss, secs, peak = entry("streaming", lambda: build_boss_streaming(
+            [codes], 31, mode="canonical", chunk_codes=STREAM_CHUNK,
+            disk_dir=swap, device=dev))
+    same_as_ref(boss, ref[31, "ref"], "streaming k=31 canonical")
+    log(f"3i streaming k=31 canonical, disk runs: "
+        f"{n_runs(STREAM_CHUNK, 31)} runs spilled, {boss.num_edges} edges = "
+        f"3a's (W, last, F, edge_lanes); {secs:.2f} s (3a in-core warm "
+        f"{ref[31, 'warm']:.3f} s); peak {peak / 2**30:.3f} GiB (3a "
+        f"{ref[31, 'peak_bytes'] / 2**30:.3f}); launches "
+        f"{per_entry['streaming']}")
+    del boss
+
+    text = np.frombuffer(b"$ACGT", np.uint8)[codes].tobytes()
+    boss, secs, peak = entry("suffix-sharded", lambda: build_boss_sharded(
+        [text], 20, suffix_len=2, device=dev))
+    same_as_ref(boss, ref[20, "ref"], "suffix-sharded k=20")
+    log(f"3i suffix-sharded k=20 basic, suffix length 2 (16 buckets): "
+        f"{boss.num_edges} edges = 3a's (W, last, F, edge_lanes); "
+        f"{secs:.2f} s; peak {peak / 2**30:.3f} GiB; launches "
+        f"{per_entry['suffix-sharded']}")
+    del boss, text
+    torch.cuda.empty_cache()
+
+    boss, secs, peak = entry("out-of-core merge", lambda:
+                             merge_boss_graphs_out_of_core(
+        halves, n_shards=4, keep_kmer_index=True, device=dev))
+    same_as_ref(boss, mem_ref, "out-of-core merge")
+    log(f"3i out-of-core merge (4 shards) of 3g's halves (500 + 500 records "
+        f"of the first 2^21 codes, k=31 canonical, counted): "
+        f"{boss.num_edges} edges = the in-memory merge's (W, last, F, "
+        f"weights, edge_lanes); {secs:.2f} s; peak {peak / 2**30:.3f} GiB; "
+        f"launches {per_entry['out-of-core merge']}")
+    del boss, mem_ref, halves
+    launches = read_launches()
+    check_launched(launches, BUILD_KERNELS, "phase 3i")
+    log(f"3i: {n_real} real edges in the out-of-core graph; launch counts "
+        f"{launches}; {time.time() - t_phase:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1931,9 +2172,10 @@ def phase_small_state(graph, ann, reads, labels_fast, fast_rate, aln_reads,
     from metagraph_tpu_torch.graph import io as graph_io
     from metagraph_tpu_torch.kmer import packing
     t0 = time.time()
-    pf = graph_io.save_graph(os.path.join(tmp, "fast"), graph)
-    ps = graph_io.save_graph(os.path.join(tmp, "small"), graph,
-                             state="small")
+    with stored_uncompressed():        # ≈ 40 s of host zlib otherwise
+        pf = graph_io.save_graph(os.path.join(tmp, "fast"), graph)
+        ps = graph_io.save_graph(os.path.join(tmp, "small"), graph,
+                                 state="small")
     t_save = time.time() - t0
     sizes = os.path.getsize(pf), os.path.getsize(ps)
     gs = graph_io.load_graph(ps, device=dev)
@@ -1941,8 +2183,8 @@ def phase_small_state(graph, ann, reads, labels_fast, fast_rate, aln_reads,
         raise AssertionError(f"small state: file {sizes[1]} B, not below the "
                              f"fast state's {sizes[0]} B")
     log(f"3f small state, k=20 basic graph of 2^25 codes: .dbg.npz "
-        f"{sizes[1] / 2**20:.1f} MiB small, {sizes[0] / 2**20:.1f} MiB fast "
-        f"(both saved in {t_save:.1f} s)")
+        f"{sizes[1] / 2**20:.1f} MiB small, {sizes[0] / 2**20:.1f} MiB fast, "
+        f"both stored without zlib (saved in {t_save:.1f} s)")
     bq = BatchQuery(AnnotatedDbg(graph=gs, annotation=ann))
     bq.get_labels_batch(reads[:256], 0.7)                   # warm
     torch.cuda.synchronize()
@@ -2718,9 +2960,10 @@ class _StdinList(io.StringIO):
         return False
 
 
-def cli_in_process(device):
+def cli_in_process(device, zlib=True):
     """A runner of the CLI's ``main`` in this process on ``device``:
-    returns its stdout; a non-zero exit raises."""
+    returns its stdout; a non-zero exit raises. Without ``zlib`` its
+    .npz files are stored uncompressed (``stored_uncompressed``)."""
     from metagraph_tpu_torch.cli.main import main as cli
 
     def run(*argv, stdin=None):
@@ -2728,7 +2971,9 @@ def cli_in_process(device):
         try:
             if stdin is not None:
                 sys.stdin = _StdinList(stdin)
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), (
+                    contextlib.nullcontext() if zlib
+                    else stored_uncompressed()):
                 cli([*argv, "--device", device])
         except SystemExit as e:
             if e.code not in (0, None):
@@ -2920,6 +3165,121 @@ def cli_anno(tmp, run, fa, names, seqs, g):
         f"records its window offsets; stats of each")
 
 
+def cli_scaleout(tmp, run, fa, seqs, env):
+    """Phase 4, the scale-out commands at a small size, on the card and
+    (in this process) on the CPU: build --suffix-len 1 --parts-total 2
+    --part-idx 0/1 then concatenate; build --disk-swap; build
+    --num-shards 4; merge --num-shards 2 of the records' halves;
+    coordinator with two worker processes (card only); build --reference
+    from a VCF of SNPs, indels and a multi-allelic site, and from its
+    .vcf.gz. Every exit code is 0, and each graph's stats equals the
+    direct build's on the card and on the CPU."""
+    import gzip
+    import socket
+    import threading
+    run_cpu = cli_in_process("cpu")
+
+    def p(name):
+        return os.path.join(tmp, name)
+
+    write_fasta(p("so_h1.fa"), [s.encode() for s in seqs[:100]])
+    write_fasta(p("so_h2.fa"), [s.encode() for s in seqs[100:]])
+    run("build", "-k", "31", "-o", p("so_g"), fa)
+    want = run("stats", p("so_g"))
+    if run_cpu("stats", p("so_g")) != want:
+        raise AssertionError("CLI stats of the direct build: card != CPU")
+    flows = {
+        "parts + concatenate": [
+            ["build", "-k", "31", "--suffix-len", "1", "--parts-total", "2",
+             "--part-idx", str(i), "-o", "@p", fa] for i in (0, 1)]
+        + [["concatenate", "-i", "@p", "--len-suffix", "1", "-o", "@out"]],
+        "disk-swap": [["build", "-k", "31", "--disk-swap", tmp,
+                       "--mem-cap-gb", "0.001", "-o", "@out", fa]],
+        "num-shards": [["build", "-k", "31", "--num-shards", "4", "-o",
+                        "@out", fa]],
+        "merge --num-shards": [
+            ["build", "-k", "31", "-o", "@h1", p("so_h1.fa")],
+            ["build", "-k", "31", "-o", "@h2", p("so_h2.fa")],
+            ["merge", "--num-shards", "2", "-o", "@out", "@h1", "@h2"]],
+    }
+    for name, cmds in flows.items():
+        for r, tag in ((run, "cuda"), (run_cpu, "cpu")):
+            for argv in cmds:
+                r(*[p(f"so_{tag}_{x[1:]}") if x.startswith("@") else x
+                    for x in argv])
+            if r("stats", p(f"so_{tag}_out")) != want:
+                raise AssertionError(f"CLI {name} on {tag}: stats differ "
+                                     f"from the direct build's")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    coord = threading.Thread(target=run, args=(
+        "coordinator", "-k", "31", "--suffix-len", "1", "--port", str(port),
+        "-o", p("so_coord"), fa))
+    coord.start()
+    deadline = time.time() + 120         # a worker must find it bound
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=1).close()
+            break
+        except OSError:
+            if not coord.is_alive() or time.time() > deadline:
+                raise AssertionError("CLI coordinator did not bind its port")
+            time.sleep(0.05)
+    workers = [subprocess.Popen(
+        [sys.executable, "-m", "metagraph_tpu_torch.cli.main", "worker",
+         "--server", f"http://127.0.0.1:{port}", "--name", f"w{i}"],
+        env=env, cwd=tmp) for i in range(2)]
+    try:
+        coord.join(timeout=600)
+    finally:
+        codes = [w.wait(timeout=120) for w in workers]
+    if coord.is_alive() or codes != [0, 0]:
+        raise AssertionError(f"CLI coordinator / workers failed: {codes}")
+    if run("stats", p("so_coord")) != want:
+        raise AssertionError("CLI coordinator: stats differ from the direct "
+                             "build's")
+    # VCF: SNPs, indels, a multi-allelic site, a symbolic allele (skipped)
+    rng = np.random.default_rng(SEED + 11)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    chrom = rng.choice(acgt, 3000).tobytes()
+    with open(p("ref.fa"), "wb") as f:
+        f.write(b">chr1\n" + chrom + b"\n")
+    rows = []
+    for pos in range(40, 2960, 37):
+        ref_c = chr(chrom[pos - 1])
+        other = "ACGT"[("ACGT".index(ref_c) + 1) % 4]
+        alt = [other, ref_c + "GAT", other + "," + ref_c + "T,<DEL>"][
+            pos % 3]
+        ref_a = ref_c if pos % 5 else chrom[pos - 1:pos + 2].decode()
+        rows.append(f"chr1\t{pos}\t.\t{ref_a}\t{alt}\t.\tPASS\t.\n")
+    text = "##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL" \
+        "\tFILTER\tINFO\n" + "".join(rows)
+    with open(p("v.vcf"), "w") as f:
+        f.write(text)
+    with gzip.open(p("v.vcf.gz"), "wt") as f:
+        f.write(text)
+    from metagraph_tpu_torch.seqio.vcf import vcf_to_sequences
+    write_fasta(p("v_alleles.fa"),
+                vcf_to_sequences(p("v.vcf"), p("ref.fa"), 31))
+    run("build", "-k", "31", "-o", p("v_direct"), p("v_alleles.fa"))
+    want_v = run("stats", p("v_direct"))
+    for r, tag in ((run, "cuda"), (run_cpu, "cpu")):
+        for vcf in ("v.vcf", "v.vcf.gz"):
+            out = p(f"v_{tag}_{vcf.replace('.', '_')}")
+            r("build", "-k", "31", "--reference", p("ref.fa"), "-o", out,
+              p(vcf))
+            if r("stats", out) != want_v:
+                raise AssertionError(f"CLI build {vcf} on {tag}: stats "
+                                     f"differ from the alleles' build")
+    log(f"CLI scale-out: build --parts-total 2 + concatenate, --disk-swap, "
+        f"--num-shards 4, merge --num-shards 2 (card and CPU), coordinator "
+        f"with two worker processes: exit 0, stats equal to the direct "
+        f"build's; build --reference from a VCF of {len(rows)} sites and "
+        f"its .vcf.gz (card and CPU): stats equal to the build of its "
+        f"alleles' FASTA")
+
+
 def cli_alphabets_small(tmp, run, rng, fa, names, seqs, gb):
     """Phase 4, 3f's commands, through the CLI's ``main`` in this process
     (``run``): build --alphabet Protein (basic), DNA5
@@ -3107,6 +3467,7 @@ def phase_cli(device):
         cli_alphabets_small(tmp, cli_in_process(device), rng, fa, names,
                             seqs, gb)
         cli_anno(tmp, run, fa, names, list(seqs.values()), g)
+        cli_scaleout(tmp, run, fa, list(seqs.values()), env)
     log(f"CLI build/annotate/query/query --align/align/align --json/stats "
         f"--device {device}: exit 0; each of {len(names)} records labelled "
         f"with its own name and aligned to its graph with score 2*len and "
@@ -3130,7 +3491,7 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     log(f"device: {name} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda})")
-    log(smi)
+    print(smi, flush=True)        # as nvidia-smi prints it
 
     t_start = t0 = time.time()
     _cuda.lib()
@@ -3144,13 +3505,16 @@ def main():
         return out
 
     summary = timed(phase_kernels, dev)
-    build_launches, (align_launches, _), _, surface = timed(
+    build_launches, (align_launches, _), main_results, surface = timed(
         phase_main_path, dev)
     primary_launches = timed(phase_primary, dev)
     timed(phase_kmc, dev)
     timed(phase_sidecar, dev)
     alph_launches, alph_align = timed(phase_alphabets, dev)
     graph_launches = timed(phase_graph, dev)
+    scale_launches = timed(phase_scaleout, dev, main_results)
+    rd_launches = main_results.pop("3i row_diff")["launches"]
+    del main_results
     timed(phase_cli, "cuda")
 
     kernels = []
@@ -3165,12 +3529,13 @@ def main():
              "metagraph_tpu/align/pallas_dp.py:185", align_launches)):
         err, ms, plain, lib_ms, (bound_ms, bound_by) = summary[kname]
         # the main path's runs, phase 3f's (its builds and its
-        # score-only Protein alignment), phase 3g's and phase 3h's
+        # score-only Protein alignment), phase 3g's, 3h's and 3i's
         n_launch = (launches[kname] + (alph_align if kname == "pallas_dp"
                                        else alph_launches)[kname]
                     + graph_launches[kname]
                     + surface["graph launches"][kname]
-                    + surface["anno launches"][kname])
+                    + surface["anno launches"][kname]
+                    + scale_launches[kname] + rd_launches[kname])
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n_launch,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,

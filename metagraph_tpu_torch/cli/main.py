@@ -6,7 +6,11 @@ assembly by label masks), clean, transform, compare, extend, merge and
 align -o *.gfa; and the annotation forms: transform_anno (every
 --anno-type of the JAX CLI), relax_brwt, merge_anno, coordinate /
 annotate --coordinates and query --query-coords. Every command that
-reads an annotation takes every form.
+reads an annotation takes every form. The scale-out builds: build
+--suffix-len / --suffix / --parts-total with concatenate, coordinator
+and worker (suffix-sharded chunks), --disk-swap (streamed collect),
+--num-shards (out-of-core), merge --num-shards and transform_anno
+--disk-swap; and VCF input (build --reference ref.fa variants.vcf).
 
 PyTorch counterpart of ``metagraph_tpu/cli/main.py`` for the subset the
 port covers; stdout is byte for byte that of the JAX CLI. Every command
@@ -44,6 +48,20 @@ subcommand or flag exits non-zero with "not yet ported".
     python -m metagraph_tpu_torch.cli.main transform_anno --anno-type brwt \
         --relax-arity 8 -o b graph.column.annodbg.npz
     python -m metagraph_tpu_torch.cli.main coordinate -i graph --anno-header in.fa
+    python -m metagraph_tpu_torch.cli.main build -k 31 --num-shards 8 -o g reads.fa
+    python -m metagraph_tpu_torch.cli.main build -k 31 --disk-swap /tmp \
+        --mem-cap-gb 4 -o g reads.fa
+    python -m metagraph_tpu_torch.cli.main build -k 31 --suffix-len 2 \
+        --parts-total 4 --part-idx 0 -o parts reads.fa
+    python -m metagraph_tpu_torch.cli.main concatenate -i parts --len-suffix 2 -o g
+    python -m metagraph_tpu_torch.cli.main coordinator -k 31 --suffix-len 1 \
+        --port 8900 -o g reads.fa
+    python -m metagraph_tpu_torch.cli.main worker --server http://127.0.0.1:8900
+    python -m metagraph_tpu_torch.cli.main merge --num-shards 8 -o m g1 g2
+    python -m metagraph_tpu_torch.cli.main transform_anno --anno-type row_diff \
+        --disk-swap /tmp --mem-cap-gb 1 -i graph -o rd graph.column.annodbg.npz
+    python -m metagraph_tpu_torch.cli.main build -k 31 --reference ref.fa \
+        -o v variants.vcf.gz
     python -m metagraph_tpu_torch.cli.main query --query-coords -i graph \
         -a graph.coord.annodbg.npz q.fa
 """
@@ -52,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import List, Optional, Sequence
@@ -59,7 +78,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 # the JAX CLI's other subcommands
-_NOT_PORTED = ("concatenate", "server_query", "coordinator", "worker")
+_NOT_PORTED = ("server_query",)
 
 
 # reference options the JAX CLI accepts on every subcommand with no
@@ -107,11 +126,12 @@ def _load_graph(path, device, wrap_primary: bool = True):
 
 
 def cmd_build(args):
+    import torch
     from ..graph import io as graph_io
-    from ..graph.boss_construct import build_boss, check_lanes
+    from ..graph.boss_construct import check_lanes
     from ..graph.dbg_succinct import DbgSuccinct
     from ..kmer.alphabets import ALPHABETS
-    from ..seqio.fasta import kmer_counts_sidecar, parse_records
+    from ..seqio.fasta import kmer_counts_sidecar
 
     if not args.fnames and not sys.stdin.isatty():
         # `find . -name "*.fa" | metagraph build ...`: the input file list
@@ -125,30 +145,155 @@ def cmd_build(args):
     except NotImplementedError as e:
         raise SystemExit(f"build: {e}") from e
     bits_per_count = args.count_width if args.count_kmers else 0
+    vcf = any(f.endswith((".vcf", ".vcf.gz")) for f in args.fnames)
     t0 = time.time()
+    valid = None
     if any(f.endswith((".kmc_pre", ".kmc_suf")) for f in args.fnames):
         if len(args.fnames) != 1:
             raise SystemExit("build: one KMC database per build")
         boss = _build_from_kmc(args, bits_per_count)
-    elif any(f.endswith((".vcf", ".vcf.gz")) for f in args.fnames):
-        raise SystemExit("build: VCF input is not yet ported")
-    elif args.count_kmers and all(kmer_counts_sidecar(f)
-                                  for f in args.fnames):
+        if boss is None:                 # --suffix: a chunk file
+            return
+    elif (args.count_kmers and not vcf
+          and all(kmer_counts_sidecar(f) for f in args.fnames)):
         boss = _build_weighted_from_sidecars(args, alphabet, bits_per_count)
+    elif args.suffix or args.parts_total > 1:
+        _build_chunks(args, alphabet)
+        return
     else:
-        seqs = [r.seq for f in args.fnames for r in parse_records(f)]
-        if args.fwd_and_reverse:
-            # each sequence also counts as its reverse complement
-            seqs.extend(s.translate(_REVCOMP)[::-1] for s in list(seqs))
-        log(f"Read {len(seqs)} sequences "
-            f"({sum(map(len, seqs)) / 1e6:.1f} Mbp)")
-        t0 = time.time()
-        boss = build_boss(seqs, args.k, alphabet=alphabet, mode=args.mode,
-                          bits_per_count=bits_per_count, device=args.device)
+        boss, valid = _build_from_sequences(args, alphabet, bits_per_count,
+                                            vcf)
     log(f"Graph construction: {time.time() - t0:.2f} s")
-    graph = DbgSuccinct.from_boss(boss, alphabet, args.mode)
+    if valid is not None:
+        valid = torch.from_numpy(valid).to(boss.device)
+    graph = DbgSuccinct.from_boss(boss, alphabet, args.mode, valid=valid)
     log(f"Serialized to "
         f"{graph_io.save_graph(args.outfile_base, graph, args.state)}")
+
+
+def _read_sequences(args) -> list:
+    """Every input record (the alleles of VCF inputs in their k-flanked
+    reference context, which needs ``--reference``), with the reverse
+    complements under ``--fwd-and-reverse``."""
+    from ..seqio.fasta import parse_records
+    seqs = []
+    for f in args.fnames:
+        if f.endswith((".vcf", ".vcf.gz")):
+            from ..seqio.vcf import vcf_to_sequences
+            if not args.reference:
+                raise SystemExit("build: --reference is required for VCF "
+                                 "input")
+            seqs.extend(vcf_to_sequences(f, args.reference, args.k))
+        else:
+            seqs.extend(r.seq for r in parse_records(f))
+    if args.fwd_and_reverse:
+        # each sequence also counts as its reverse complement
+        seqs.extend(s.translate(_REVCOMP)[::-1] for s in list(seqs))
+    log(f"Read {len(seqs)} sequences "
+        f"({sum(map(len, seqs)) / 1e6:.1f} Mbp)")
+    return seqs
+
+
+def _stream_sequences(fnames):
+    """The records of ``fnames`` parsed ahead on a thread, in batches of
+    1024 (an out-of-core or disk-swap build reads its input once)."""
+    from ..seqio.fasta import BatchFeeder, parse_records
+
+    def batches():
+        batch = []
+        for f in fnames:
+            for r in parse_records(f):
+                batch.append(r.seq)
+                if len(batch) >= 1024:
+                    yield batch
+                    batch = []
+        if batch:
+            yield batch
+
+    return (s for chunk in BatchFeeder(batches(), depth=8) for s in chunk)
+
+
+def _build_from_sequences(args, alphabet, bits_per_count: int, vcf: bool):
+    """FASTA / FastQ / VCF input: the streamed collect (``--disk-swap``),
+    the out-of-core build (``--num-shards`` in basic mode), the
+    suffix-sharded build (``--suffix-len``, or ``--num-shards`` in the
+    other modes) or the single-shard build. Returns (Boss, the real-edge
+    mask of an out-of-core build or None)."""
+    from ..graph.boss_construct import build_boss
+    streamed = ((args.disk_swap or (args.num_shards > 1
+                                    and args.mode == "basic"))
+                and not vcf and not args.fwd_and_reverse
+                and args.suffix_len == 0)
+    seqs = (_stream_sequences(args.fnames) if streamed
+            else _read_sequences(args))
+    if args.disk_swap:
+        from ..parallel.streaming import build_boss_streaming
+        # a directory engages the on-disk run tier; --mem-cap-gb bounds
+        # the collect's window (16 bytes a character)
+        chunk = min(max(int(args.mem_cap_gb * (1 << 30) / 16), 1 << 20),
+                    1 << 26)
+        return build_boss_streaming(
+            seqs, args.k, alphabet=alphabet, mode=args.mode,
+            bits_per_count=bits_per_count, chunk_codes=chunk,
+            disk_dir=(args.disk_swap if os.path.isdir(args.disk_swap)
+                      else None), device=args.device), None
+    if args.num_shards > 1 and args.mode == "basic":
+        from ..parallel.outofcore import build_boss_out_of_core
+        return build_boss_out_of_core(
+            seqs, args.k, alphabet=alphabet, n_shards=args.num_shards,
+            bits_per_count=bits_per_count,
+            keep_kmer_index=args.state != "small", verbose=args.verbose,
+            return_valid=True, device=args.device)
+    if args.suffix_len > 0 or args.num_shards > 1:
+        from ..parallel.sharded_build import build_boss_sharded
+        return build_boss_sharded(
+            seqs, args.k, alphabet=alphabet, mode=args.mode,
+            bits_per_count=bits_per_count,
+            suffix_len=max(args.suffix_len, 1), device=args.device), None
+    return build_boss(seqs, args.k, alphabet=alphabet, mode=args.mode,
+                      bits_per_count=bits_per_count,
+                      device=args.device), None
+
+
+def _suffix_codes(args, alphabet):
+    """``--suffix`` as character codes; '$' (the sentinel) is code 0."""
+    try:
+        return tuple(alphabet.letters.index(ch) for ch in args.suffix)
+    except ValueError:
+        raise SystemExit(f"build: --suffix {args.suffix!r} holds a letter "
+                         f"outside {alphabet.name}") from None
+
+
+def _build_chunks(args, alphabet):
+    """``--suffix S``: the chunk file of one node-suffix bucket;
+    ``--parts-total P --part-idx p``: the chunks of buckets p, p + P, ...
+    of ``--suffix-len``. ``concatenate`` builds the graph of the chunks
+    (reference build.cpp:103-155, the --part-idx workflow)."""
+    from ..common import packed
+    from ..parallel.sharded_build import (bucket_name, build_shard_kmers,
+                                          save_chunk, suffix_buckets)
+    seqs = _read_sequences(args)
+    canonical = args.mode in ("canonical", "primary")
+    if args.suffix:
+        buckets = [_suffix_codes(args, alphabet)]
+    else:
+        if args.suffix_len <= 0:
+            raise SystemExit("build: --parts-total needs --suffix-len")
+        buckets = suffix_buckets(alphabet, args.suffix_len)[
+            args.part_idx::args.parts_total]
+    for sfx in buckets:
+        if 0 in sfx:       # the '$' bucket: dummies come at the finish
+            lanes = np.zeros((packed.num_lanes(args.k,
+                                               alphabet.bits_per_char), 0),
+                             np.uint32)
+            counts = np.zeros((0,), np.int32)
+        else:
+            lanes, counts, _ = build_shard_kmers(
+                seqs, args.k, sfx, alphabet, canonical=canonical,
+                device=args.device)
+        out = f"{args.outfile_base}.{bucket_name(alphabet, sfx)}.chunk.npz"
+        save_chunk(out, lanes, counts, args.k, alphabet.name, sfx)
+        log(f"Serialized chunk to {out}")
 
 
 def sidecar_kmers(fnames: Sequence[str], k: int, alphabet):
@@ -184,7 +329,9 @@ def _build_weighted_from_sidecars(args, alphabet, bits_per_count: int):
 def _build_from_kmc(args, bits_per_count: int):
     """A KMC database's k-mers, count-filtered, as a graph. They build
     over DNA whatever ``--alphabet`` names, as in the JAX CLI (the graph
-    is labelled with that alphabet)."""
+    is labelled with that alphabet). With ``--suffix`` the k-mers whose
+    node suffix (after the canonical fold) is that suffix go to a chunk
+    file instead, and None is returned."""
     from ..kmer.alphabets import DNA
     from ..seqio.kmc import read_kmers
     chars, counts, hdr = read_kmers(args.fnames[0], min_count=args.min_count,
@@ -192,7 +339,43 @@ def _build_from_kmc(args, bits_per_count: int):
     log(f"KMC database: {len(chars)} k-mers, k={hdr.kmer_length}")
     if args.k != hdr.kmer_length:
         raise SystemExit(f"build: -k {args.k} != KMC k {hdr.kmer_length}")
+    if args.suffix:
+        _kmc_chunk(args, chars, counts)
+        return None
     return _build_counted(chars, counts, args, bits_per_count, DNA)
+
+
+def _kmc_chunk(args, chars, counts):
+    """One suffix bucket of a KMC database as a chunk file (the
+    reference's test_build.py:270-330 workflow); the '$' bucket is empty
+    (dummies are made at the finish). The bucket takes the k-mers whose
+    node characters K-s..K-1 of the packed (canonical) k-mer equal the
+    suffix, as in the JAX CLI."""
+    from ..common import merge as pmerge
+    from ..common import packed
+    from ..graph.boss_construct import collect_counted_kmers
+    from ..kmer.alphabets import ALPHABETS, DNA
+    from ..parallel.sharded_build import bucket_name, save_chunk
+    alphabet = ALPHABETS[args.alphabet]
+    sfx = _suffix_codes(args, alphabet)
+    B = DNA.bits_per_char
+    if 0 in sfx:
+        comp = np.zeros((packed.num_lanes(args.k, B), 0), np.uint32)
+        ccomp = np.zeros((0,), np.int32)
+    else:
+        lanes, cnts, n = collect_counted_kmers(
+            chars, counts, args.k, canonical=args.mode != "basic",
+            device=args.device)
+        keep = packed.valid_mask(lanes.shape[1], n, lanes.device)
+        for i, c in enumerate(sfx):
+            keep &= packed.get_field(lanes, args.k - len(sfx) + i, B) == c
+        comp_d, nc, (cc,) = pmerge.partition_compact(lanes, keep,
+                                                     lanes.shape[1], cnts)
+        nc = int(nc)
+        comp, ccomp = comp_d[:, :nc], cc[:nc]
+    out = f"{args.outfile_base}.{bucket_name(alphabet, sfx)}.chunk.npz"
+    save_chunk(out, comp, ccomp, args.k, alphabet.name, sfx)
+    log(f"Serialized chunk to {out}")
 
 
 def _build_counted(chars, counts, args, bits_per_count: int, alphabet):
@@ -964,11 +1147,29 @@ def cmd_merge(args):
     from ..graph import io as graph_io
     from ..graph.dbg_succinct import DbgSuccinct
 
-    if args.num_shards > 1:
-        raise SystemExit("merge: --num-shards > 1 (the streaming out-of-core "
-                         "merge) is not yet ported: ROADMAP queue 1 item 8")
     graphs = [_load_graph(f, args.device) for f in args.fnames]
     weighted = all(_boss(g, "merge").weights is not None for g in graphs)
+    if args.num_shards > 1:
+        # the graphs' sorted edge sets through the out-of-core finish:
+        # device working set O(total / num_shards)
+        import torch
+        from ..parallel.outofcore import merge_boss_graphs_out_of_core
+        try:
+            boss, valid = merge_boss_graphs_out_of_core(
+                graphs, n_shards=args.num_shards,
+                keep_kmer_index=args.state != "small", verbose=args.verbose,
+                return_valid=True, device=args.device)
+        except ValueError as e:
+            raise SystemExit(f"merge: {e}") from e
+        g0 = graphs[0]
+        out = graph_io.save_graph(
+            args.outfile_base,
+            DbgSuccinct.from_boss(boss, g0.alphabet, g0.mode,
+                                  valid=torch.from_numpy(valid).to(
+                                      boss.device)), state=args.state)
+        log(f"Merged {len(graphs)} graphs (streaming, {args.num_shards} "
+            f"shards) -> {out}")
+        return
     parts = [_real_edges(g, weighted) for g in graphs]
     g0 = graphs[0]
     boss, _ = _rebuild([p[0] for p in parts], [p[1] for p in parts], g0.k,
@@ -1201,10 +1402,6 @@ def cmd_transform_anno(args):
     from ..anno.annotator import Annotation, LabelEncoder
     from ..anno.matrix import RowSparse
 
-    if args.disk_swap:
-        raise SystemExit("transform_anno --disk-swap (the out-of-core staged "
-                         "RowDiff conversion) is not yet ported: ROADMAP "
-                         "queue 1 item 8")
     ann = Annotation.load(args.fnames[0], device=args.device)
     if args.rename_cols:
         # whitespace-separated "<old> <new>" pairs
@@ -1270,12 +1467,107 @@ def cmd_transform_anno(args):
             and args.row_diff_stage < 2:
         _row_diff_stage(args, ann.matrix.to_row_sparse(), target)
         return
+    if args.disk_swap and target in ("row_diff", "int_row_diff"):
+        _row_diff_disk_swap(args, target)
+        return
     out_mat = _convert(args, ann.matrix, target)
     if target == "int_row_diff_brwt":
         target = "row_diff_int_brwt"
     path = args.outfile_base + f".{target}.annodbg.npz"
     Annotation(matrix=out_mat, encoder=ann.encoder).save(path)
     log(f"Serialized {target} annotation to {path}")
+
+
+def _row_diff_disk_swap(args, target: str):
+    """The out-of-core staged conversion of every input file
+    (``anno/row_diff_disk.py``): spill runs in ``--disk-swap``, bounded by
+    ``--mem-cap-gb`` of buffer."""
+    from ..anno import row_diff_disk
+    if not args.infile_base:
+        raise SystemExit(f"transform_anno: {target} needs the graph (-i)")
+    g = _load_graph(args.infile_base, args.device)
+    build = (row_diff_disk.build_int_row_diff_staged
+             if target == "int_row_diff"
+             else row_diff_disk.build_row_diff_staged)
+    try:
+        out = build(args.fnames, g, swap_dir=args.disk_swap,
+                    mem_cap_mb=int(args.mem_cap_gb * 1024),
+                    max_length=args.max_path_length)
+    except ValueError as e:
+        raise SystemExit(f"transform_anno: {e}") from e
+    path = args.outfile_base + f".{target}.annodbg.npz"
+    out.save(path)
+    log(f"Serialized {target} annotation to {path}")
+
+
+def cmd_concatenate(args):
+    """The graph of a chunked build's chunk files (reference concatenate,
+    build.cpp:359-456): the files named, or ``-i BASE``'s
+    ``BASE.<suffix>.chunk.npz`` in bucket colex order. The JAX CLI looks
+    for DNA's buckets whatever the chunks' alphabet, so it drops every
+    bucket of another alphabet's letters; here the buckets are those of
+    the alphabet the chunks record (ROADMAP §3.5)."""
+    import glob
+    from ..kmer.alphabets import ALPHABETS
+    from ..parallel.sharded_build import (bucket_name, concatenate_chunks,
+                                          suffix_buckets)
+    files = list(args.fnames)
+    if not files and args.infile_base:
+        found = sorted(glob.glob(glob.escape(args.infile_base)
+                                 + ".*.chunk.npz"))
+        if found:
+            with np.load(found[0]) as d:
+                alphabet = ALPHABETS[str(d["alphabet"])]
+            for sfx in suffix_buckets(alphabet, args.len_suffix):
+                p = f"{args.infile_base}.{bucket_name(alphabet, sfx)}.chunk.npz"
+                if os.path.exists(p):
+                    files.append(p)
+    if not files:
+        raise SystemExit("concatenate: no chunk files")
+    concatenate_chunks(files, args.outfile_base, mode=args.mode,
+                       bits_per_count=args.count_width if args.count_kmers
+                       else 0, device=args.device)
+    log(f"Concatenated {len(files)} chunks -> {args.outfile_base}")
+
+
+def cmd_coordinator(args):
+    """Serve a work queue of per-suffix chunk builds, wait for workers to
+    drain it, then concatenate the chunks (the reference's cloud work
+    queue, scripts/cloud/server.py:88-230). Each job runs on the
+    coordinator's ``--device``."""
+    from ..kmer.alphabets import DNA
+    from ..parallel.coordinator import serve_queue
+    from ..parallel.sharded_build import (bucket_name, concatenate_chunks,
+                                          suffix_buckets)
+    jobs, chunk_files = [], []
+    for sfx in suffix_buckets(DNA, args.suffix_len):
+        name = bucket_name(DNA, sfx)
+        jobs.append({"argv": ["build", "-k", str(args.k), "--mode", args.mode,
+                              "--suffix", name, "-o", args.outfile_base,
+                              "--device", args.device]
+                     + (["--count-kmers"] if args.count_kmers else [])
+                     + args.fnames})
+        chunk_files.append(f"{args.outfile_base}.{name}.chunk.npz")
+    httpd, queue = serve_queue(jobs, host=args.host, port=args.port)
+    log(f"Coordinator: {len(jobs)} jobs on "
+        f"http://{httpd.server_address[0]}:{httpd.server_address[1]}")
+    try:
+        while not queue.finished():
+            time.sleep(0.5)
+    finally:
+        httpd.shutdown()
+    concatenate_chunks(chunk_files, args.outfile_base, mode=args.mode,
+                       bits_per_count=args.count_width if args.count_kmers
+                       else 0, device=args.device)
+    log(f"Distributed build complete -> {args.outfile_base}")
+
+
+def cmd_worker(args):
+    """Pull and run a coordinator's jobs until its queue drains (the
+    reference's cloud worker, scripts/cloud/client.py)."""
+    from ..parallel.coordinator import Worker
+    Worker(args.server, name=args.name).run_until_empty()
+    log("Worker done: queue drained")
 
 
 def cmd_relax_brwt(args):
@@ -1338,8 +1630,52 @@ def build_parser() -> argparse.ArgumentParser:
                     help="also build from each sequence's reverse "
                          "complement")
     sp.add_argument("--state", choices=["fast", "small"], default="fast")
+    # the scale-out builds (parallel/)
+    sp.add_argument("--suffix-len", type=int, default=0,
+                    help="suffix-sharded build over this node-suffix length")
+    sp.add_argument("--suffix", default=None,
+                    help="build only this node suffix's chunk file")
+    sp.add_argument("--num-shards", type=int, default=1,
+                    help="basic mode: the out-of-core build over this many "
+                         "shards; other modes: a suffix-sharded build")
+    sp.add_argument("--disk-swap", default="",
+                    help="streamed collect; a directory holds its runs")
+    sp.add_argument("--mem-cap-gb", type=float, default=1.0,
+                    help="--disk-swap: the collect window (16 bytes a "
+                         "character)")
+    sp.add_argument("--parts-total", type=int, default=1,
+                    help="split the suffix buckets across this many build "
+                         "invocations")
+    sp.add_argument("--part-idx", type=int, default=0,
+                    help="which bucket subset this invocation builds")
     sp.add_argument("-o", "--outfile-base", default="graph")
     sp.add_argument("fnames", nargs="*")
+
+    sp = add("concatenate", cmd_concatenate)
+    sp.add_argument("-o", "--outfile-base", default="graph")
+    sp.add_argument("-i", "--infile-base", default=None)
+    sp.add_argument("--len-suffix", type=int, default=1)
+    sp.add_argument("--mode", choices=["basic", "canonical", "primary"],
+                    default="basic")
+    sp.add_argument("--count-kmers", action="store_true")
+    sp.add_argument("--count-width", type=int, default=8)
+    sp.add_argument("fnames", nargs="*")
+
+    sp = add("coordinator", cmd_coordinator)
+    sp.add_argument("-k", "--kmer-length", dest="k", type=int, required=True)
+    sp.add_argument("--mode", choices=["basic", "canonical", "primary"],
+                    default="basic")
+    sp.add_argument("--count-kmers", action="store_true")
+    sp.add_argument("--count-width", type=int, default=8)
+    sp.add_argument("--suffix-len", type=int, default=1)
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=0)
+    sp.add_argument("-o", "--outfile-base", default="graph")
+    sp.add_argument("fnames", nargs="+")
+
+    sp = add("worker", cmd_worker)
+    sp.add_argument("--server", required=True)
+    sp.add_argument("--name", default="worker")
 
     sp = add("stats", cmd_stats)
     sp.add_argument("--count-dummy", action="store_true")
@@ -1542,7 +1878,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("-o", "--outfile-base", default="graph")
     sp.add_argument("fnames", nargs="+")
     sp.add_argument("--num-shards", type=int, default=0,
-                    help="the streaming out-of-core merge (not yet ported)")
+                    help="merge through the out-of-core finish over this "
+                         "many shards")
     sp.add_argument("--state", choices=["fast", "small"], default="fast")
 
     sp = add("merge_anno", cmd_merge_anno)
@@ -1570,8 +1907,10 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--num-rows-subsampled", "--subsample",
                     dest="num_rows_subsampled", type=int, default=1000000)
     sp.add_argument("--disk-swap", default="",
-                    help="the out-of-core staged conversion (not yet "
-                         "ported)")
+                    help="directory of the out-of-core staged row_diff / "
+                         "int_row_diff conversion")
+    sp.add_argument("--mem-cap-gb", type=float, default=1.0,
+                    help="spill buffer cap of --disk-swap conversions")
     sp.add_argument("--row-diff-stage", type=int, default=2,
                     help="0 / 1: accumulate the staged conversion's "
                          "artifacts; 2: the whole conversion")

@@ -138,15 +138,21 @@ def _collect(codes: torch.Tensor, K: int, B: int, canonical: bool,
 
 
 def _collect_bbit(codes: torch.Tensor, K: int, B: int, canonical: bool,
-                  complement, bound_pos=None):
-    """Every alphabet but DNA, at its own B bits per char: extract and
-    compact the valid windows (partition kernel), fold each to canonical
-    form, sort-unique; the boundary candidates are packed from the codes
-    of the windows at ``bound_pos``. Returns what ``_collect`` does.
+                  complement, bound_pos=None, suffix=()):
+    """Every alphabet but DNA, and every suffix-filtered collect, at B
+    bits per char: extract and compact the valid windows (partition
+    kernel; with ``suffix`` only those of that node suffix), fold each to
+    canonical form, sort-unique; the boundary candidates are packed from
+    the codes of the windows at ``bound_pos``. Returns what ``_collect``
+    does.
 
     No key can equal PAD: codes stay below 2^B - 1 (at most 26 in 8
     bits, 9 in 4), so no field of a real k-mer is all ones."""
-    lanes, count = extract_packed_kmers(codes, K, B)
+    lanes, count = extract_packed_kmers(codes, K, B, suffix)
+    if suffix:
+        # a bucket keeps about 1/sigma^s of the windows: sort those alone
+        # (the compaction's PAD tail starts at the count)
+        lanes = lanes[:, :max(int(count), 1)]
     if canonical:
         rc = packing.reverse_complement(lanes, K, B, complement)
         take_rc = packed.lt(rc, lanes) & packed.valid_mask(
@@ -226,14 +232,19 @@ def check_lanes(K: int, alphabet: Alphabet):
 
 def collect_kmers(seqs: Sequence[bytes | str], K: int,
                   alphabet: Alphabet = DNA, canonical: bool = False,
-                  extra_codes=None, device="cuda", with_bounds: bool = True):
-    """Extract, sort, dedupe and count all k-mers of the input.
+                  extra_codes=None, device="cuda", with_bounds: bool = True,
+                  suffix: Tuple[int, ...] = ()):
+    """Extract, sort, dedupe and count all k-mers of the input (with
+    ``suffix``, only the windows of that node suffix: one bucket of a
+    suffix-sharded build, which has no boundary candidates).
 
     Returns (sorted unique lanes (L, max(n, 1)), counts, n, bounds), with
     ``bounds`` the (sink, source) dummy-candidate node keys, or None
     without ``with_bounds``."""
     dev = devmod.resolve(device)
     check_lanes(K, alphabet)
+    suffix = tuple(suffix)
+    with_bounds = with_bounds and not suffix
     codes_np = (encode_sequences(seqs, alphabet) if extra_codes is None
                 else np.asarray(extra_codes, np.uint8))
     if codes_np.shape[0] < K:
@@ -247,10 +258,15 @@ def collect_kmers(seqs: Sequence[bytes | str], K: int,
         bound_pos = tuple(torch.from_numpy(p).to(dev) for p in
                           host_boundary_windows(inval, codes_np.shape[0], K))
     codes = torch.from_numpy(codes_np).to(dev)
-    collect = _collect if _two_bit(alphabet) else _collect_bbit
-    ulanes, ucounts, ucount, bounds = collect(
-        codes, K, alphabet.bits_per_char, canonical, alphabet.complement,
-        bound_pos)
+    if suffix:
+        ulanes, ucounts, ucount, bounds = _collect_bbit(
+            codes, K, alphabet.bits_per_char, canonical, alphabet.complement,
+            suffix=suffix)
+    else:
+        collect = _collect if _two_bit(alphabet) else _collect_bbit
+        ulanes, ucounts, ucount, bounds = collect(
+            codes, K, alphabet.bits_per_char, canonical,
+            alphabet.complement, bound_pos)
     n_u = int(ucount)                       # the collect's one host sync
     cap = max(n_u, 1)
     return ulanes[:, :cap], ucounts[:cap], n_u, bounds
@@ -472,23 +488,28 @@ def _source_candidates(real, n_real, K: int, B: int):
 
 def _merge_emit_body(real, counts, n_real, dummy_parts, K: int, B: int,
                      alph_size: int, max_count: int,
-                     skip_redundant_sinks: bool):
+                     skip_redundant_sinks: bool, with_sentinel: bool = True):
     """Sort the dummy side (``dummy_parts``: lane arrays without PAD; the
-    list is emptied, so its arrays free once joined), merge it into the
-    sorted real side in one linear pass (merge kernel), then emit. Every
-    dummy holds the sentinel and no real edge does, so no key appears on
-    both sides."""
+    list is emptied, so its arrays free once joined) with the $^K
+    sentinel row (``with_sentinel``; an out-of-core build adds it on its
+    first shard only), merge it into the sorted real side in one linear
+    pass (merge kernel), then emit. Every dummy holds the sentinel and no
+    real edge does, so no key appears on both sides."""
     L = real.shape[0]
     dev = real.device
-    dummies = torch.cat(dummy_parts + [packed.zeros(1, L, dev)], dim=1)
+    sent = [packed.zeros(1, L, dev)] if with_sentinel else []
+    dummies = torch.cat(dummy_parts + sent + [packed.zeros(0, L, dev)], dim=1)
     dummy_parts.clear()
-    dummies, _ = pmerge.sort_packed(dummies)
     n_dummies = dummies.shape[1]
     counts_m = torch.where(packed.valid_mask(real.shape[1], n_real, dev),
                            counts, 0)
-    merged, (mcounts,) = pmerge.merge_sorted(
-        _masked(real, n_real), dummies, (counts_m,),
-        (torch.zeros((n_dummies,), dtype=torch.int32, device=dev),))
+    if n_dummies:
+        dummies, _ = pmerge.sort_packed(dummies)
+        merged, (mcounts,) = pmerge.merge_sorted(
+            _masked(real, n_real), dummies, (counts_m,),
+            (torch.zeros((n_dummies,), dtype=torch.int32, device=dev),))
+    else:
+        merged, mcounts = _masked(real, n_real), counts_m
     del dummies, counts_m
     n_total = n_real + n_dummies
     mcounts = torch.where(packed.valid_mask(merged.shape[1], n_total, dev),
@@ -670,23 +691,23 @@ def build_boss(seqs: Sequence[bytes | str], k: int,
                bits_per_count: int = 0, suffix: Tuple[int, ...] = (),
                device="cuda") -> Boss:
     """End-to-end single-shard BOSS build for DBG k-mer size ``k`` (edge
-    k-mers of k characters; BOSS node length k-1)."""
-    if suffix:
-        raise NotImplementedError("suffix-sharded builds are not yet ported")
-    return _build(seqs, None, k, alphabet, mode, bits_per_count, device)
+    k-mers of k characters; BOSS node length k-1); with ``suffix``, the
+    graph of that node-suffix bucket's k-mers alone."""
+    return _build(seqs, None, k, alphabet, mode, bits_per_count, device,
+                  suffix)
 
 
 def _build(seqs, codes_np, k: int, alphabet: Alphabet, mode: str,
-           bits_per_count: int, device) -> Boss:
+           bits_per_count: int, device, suffix=()) -> Boss:
     """Collect, then finish. Primary mode folds each k-mer to its
     canonical form and builds the basic graph over those; its boundary
     windows no longer bound the dummy sets, so it takes the finish
-    without candidates."""
+    without candidates (as does a suffix bucket)."""
     _check_mode(mode, alphabet)
     ulanes, ucounts, n_u, bounds = collect_kmers(
         seqs, k, alphabet, canonical=mode != MODE_BASIC,
         extra_codes=codes_np, device=device,
-        with_bounds=mode != MODE_PRIMARY)
+        with_bounds=mode != MODE_PRIMARY, suffix=suffix)
     return build_boss_from_kmers(
         ulanes, ucounts, n_u, k, alphabet,
         mode=MODE_CANONICAL if mode == MODE_CANONICAL else MODE_BASIC,

@@ -4,12 +4,14 @@ PyTorch counterpart of ``metagraph_tpu/kmer/extractor.py``. Sequences
 are concatenated with a single INVALID separator byte, so no window
 straddles two sequences; a window is a real k-mer iff it holds no
 invalid or sentinel code, which one prefix sum decides for all windows.
-``extract_packed_kmers`` packs the valid windows and compacts them.
+``extract_packed_kmers`` packs the valid windows and compacts them;
+with a node suffix it keeps only the windows whose last node characters
+match it (the k-mer-space sharding predicate of suffix-sharded builds).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,14 +46,32 @@ def window_validity(codes: torch.Tensor, K: int) -> torch.Tensor:
     return (prefix[K:] - prefix[:-K]) == 0
 
 
-def extract_packed_kmers(codes: torch.Tensor, K: int, B: int):
+def suffix_mask(codes: torch.Tensor, K: int,
+                suffix: Tuple[int, ...]) -> torch.Tensor:
+    """(N-K+1,) bool: the window's last ``len(suffix)`` node characters
+    (BOSS fields K-s..K-1) equal ``suffix``."""
+    num_windows = codes.shape[0] - K + 1
+    s = len(suffix)
+    ok = torch.ones((num_windows,), dtype=torch.bool, device=codes.device)
+    for i, c in enumerate(suffix):
+        slot = K - s + i
+        off = K - 1 if slot == 0 else slot - 1     # field -> window offset
+        ok &= codes[off:off + num_windows] == int(c)
+    return ok
+
+
+def extract_packed_kmers(codes: torch.Tensor, K: int, B: int,
+                         suffix: Optional[Tuple[int, ...]] = None):
     """All valid K-windows of ``codes``, packed in BOSS field layout at
     ``B`` bits per char and compacted to the front (partition kernel).
+    With ``suffix`` only the windows whose node suffix equals it are kept.
     Returns (lanes (L, N-K+1) with a PAD tail, count as a 0-d int32
     tensor)."""
     num_windows = codes.shape[0] - K + 1
     assert num_windows >= 0, "input shorter than k"
     ok = window_validity(codes, K)
+    if suffix:
+        ok &= suffix_mask(codes, K, suffix)
     lanes = packing.pack_windows(codes, K, B)
     lanes, count, _ = pmerge.partition_compact(lanes, ok, num_windows)
     return lanes, count

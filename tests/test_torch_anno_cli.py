@@ -307,13 +307,19 @@ def test_query_coords_on_binary_annotation_fails_alike(work, capsys):
     assert code not in (0, None) and "coordinate annotation" in code
 
 
-def test_disk_swap_not_yet_ported(work, capsys):
-    _, code = run(capsys, tmain, ["transform_anno", "--anno-type",
-                                  "row_diff", "-i", "tg", "--disk-swap",
-                                  "swap", "-o", "tds",
-                                  "ta.column.annodbg.npz", "--device", "cpu"])
-    assert code not in (0, None)
-    assert "not yet ported" in code and "item 8" in code
+@pytest.mark.parametrize("anno_type", ["row_diff", "int_row_diff"])
+def test_disk_swap_not_yet_ported(work, capsys, anno_type):
+    """``--disk-swap`` was not yet ported; now the staged conversion of
+    both files (``a``: counts, ``b``) writes the JAX CLI's file, equal to
+    the in-memory conversion of their merge."""
+    argv = ["transform_anno", "--anno-type", anno_type, "-i", "@g",
+            "--disk-swap", "@swap", "--mem-cap-gb", "0.000001", "-o", "@ds",
+            "@a.column.annodbg.npz"]
+    if anno_type == "row_diff":
+        argv.append("@b.column.annodbg.npz")
+    j, t = both(capsys, argv)
+    assert j == t and t[1] is None
+    same_npz(f"jds.{anno_type}.annodbg.npz", f"tds.{anno_type}.annodbg.npz")
 
 
 def test_primary_graph_row_diff(work, capsys):

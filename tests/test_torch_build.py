@@ -133,7 +133,9 @@ def test_count_saturation():
     lambda: tbc.collect_counted_kmers(np.ones((3, 65), np.uint8),
                                       np.ones(3), 65, alphabet=TDNA5,
                                       device="cpu"),
-    lambda: tbc.build_boss([b"ACGT" * 9], 9, suffix=(1,), device="cpu"),
+    # a suffix bucket's collect past the 8 lanes
+    lambda: tbc.collect_kmers([b"ACGT" * 20], 65, alphabet=TDNA5,
+                              suffix=(1,), device="cpu"),
     lambda: tbc.build_boss([b"ACGT" * 20], 65, alphabet=TDNA5, device="cpu"),
 ])
 def test_unported_options_raise(call):

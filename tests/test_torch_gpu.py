@@ -789,3 +789,138 @@ def test_anno_forms_cuda_equal_cpu(dev, form, tmp_path):
     if form in ("coord", "tuple_row_diff"):
         assert bqs[0].get_kmer_coordinates_batch(reads[:40]) == \
             bqs[1].get_kmer_coordinates_batch(reads[:40])
+
+
+# ---------------------------------------------------------------------------
+# the scale-out builds (parallel/, anno/row_diff_disk.py)
+# ---------------------------------------------------------------------------
+
+def _scaleout_codes(seed=60, n=1 << 18):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(1, 5, n).astype(np.uint8)
+    codes[rng.integers(0, n, 300)] = 255                   # read breaks
+    codes[5000:9000] = codes[100000:104000]                # repeats
+    text = np.frombuffer(b"$ACGT", np.uint8)[np.where(codes == 255, 0,
+                                                      codes)].tobytes()
+    return codes, [text[i:i + 4096] for i in range(0, len(text), 4096)]
+
+
+def _same_small(got, want):
+    for f in ("W", "last", "F", "weights"):
+        a, b = getattr(got, f), getattr(want, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert torch.equal(a.cpu(), b.cpu()), f
+
+
+@pytest.mark.parametrize("K,suffix", [(20, (1, 2)), (31, (4,))])
+def test_suffix_filter_cuda_equals_cpu(dev, K, suffix):
+    """The suffix filter through the partition kernel at 2^18 codes."""
+    from metagraph_tpu_torch.kmer.extractor import extract_packed_kmers
+    codes, _ = _scaleout_codes()
+    t = torch.from_numpy(codes)
+    n0 = merge.partition_launches
+    got = extract_packed_kmers(t.to(dev), K, 4, suffix)
+    assert merge.partition_launches == n0 + 1
+    want = extract_packed_kmers(t, K, 4, suffix)
+    assert int(got[1]) == int(want[1]) > 0
+    assert torch.equal(got[0].cpu(), want[0])
+
+
+@pytest.mark.parametrize("mode", ["basic", "canonical", "primary"])
+def test_sharded_build_cuda_equals_cpu(dev, mode):
+    from metagraph_tpu_torch.parallel.sharded_build import build_boss_sharded
+    _, recs = _scaleout_codes(61)
+    got, want = (build_boss_sharded(recs, 20, mode=mode, bits_per_count=8,
+                                    suffix_len=2, device=d)
+                 for d in (dev, "cpu"))
+    _same_boss(got, want)
+
+
+@pytest.mark.parametrize("disk", [False, True])
+def test_streaming_build_cuda_equals_cpu(dev, tmp_path, disk):
+    from metagraph_tpu_torch.parallel.streaming import build_boss_streaming
+    _, recs = _scaleout_codes(62)
+    kw = dict(mode="canonical", bits_per_count=8, chunk_codes=1 << 16,
+              disk_dir=str(tmp_path) if disk else None)
+    n0 = merge.merge_launches
+    got = build_boss_streaming(recs, 31, device=dev, **kw)
+    assert merge.merge_launches > n0 + 1          # the run merges
+    _same_boss(got, build_boss_streaming(recs, 31, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("bits", [0, 8])
+def test_out_of_core_cuda_equals_cpu(dev, bits):
+    from metagraph_tpu_torch.parallel.outofcore import build_boss_out_of_core
+    _, recs = _scaleout_codes(63)
+    kw = dict(n_shards=8, bits_per_count=bits, chunk_codes=1 << 16,
+              return_valid=True)
+    (got, gv), (want, wv) = (
+        build_boss_out_of_core(recs, 20, device=d, **kw)
+        for d in (dev, "cpu"))
+    _same_small(got, want)
+    assert np.array_equal(gv, wv)
+
+
+def test_out_of_core_merge_cuda_equals_cpu(dev):
+    from metagraph_tpu_torch.graph.boss_construct import build_boss
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    from metagraph_tpu_torch.parallel.outofcore import (
+        merge_boss_graphs_out_of_core)
+    _, recs = _scaleout_codes(64)
+    out = []
+    for d in (dev, "cpu"):
+        gs = [DbgSuccinct.from_boss(build_boss(part, 31, bits_per_count=8,
+                                               device=d))
+              for part in (recs[:40], recs[30:])]
+        out.append(merge_boss_graphs_out_of_core(gs, n_shards=4,
+                                                 keep_kmer_index=True,
+                                                 device=d))
+    _same_boss(*out)
+
+
+def test_out_of_core_peak_bound(dev):
+    """The device working set: at 2^22 codes and 8 shards the
+    out-of-core build peaks at most half the in-core build's bytes."""
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.parallel.outofcore import build_boss_out_of_core
+    codes = np.random.default_rng(65).integers(1, 5, 1 << 22).astype(np.uint8)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    incore = build_boss_from_codes(codes, 20, device=dev)
+    peak_in = torch.cuda.max_memory_allocated() - base
+    del incore
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build_boss_out_of_core([codes], 20, n_shards=8, chunk_codes=1 << 20,
+                           device=dev)
+    peak_ooc = torch.cuda.max_memory_allocated() - base
+    assert peak_ooc <= peak_in // 2, (peak_ooc, peak_in)
+
+
+@pytest.mark.parametrize("int_form", [False, True])
+def test_row_diff_staged_cuda_equals_cpu(dev, tmp_path, int_form):
+    from metagraph_tpu_torch.anno import row_diff_disk
+    from metagraph_tpu_torch.engine.annotated_dbg import annotate_sequences
+    from metagraph_tpu_torch.graph import io as graph_io
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    codes, recs = _scaleout_codes(66)
+    g = DbgSuccinct.from_boss(build_boss_from_codes(codes, 20, device="cpu"))
+    p = graph_io.save_graph(str(tmp_path / "g"), g)
+    ann = annotate_sequences(g, [(r, [f"l{i % 7}"]) for i, r in
+                                 enumerate(recs)],
+                             with_counts=int_form).finalize()
+    path = str(tmp_path / "a.column.annodbg.npz")
+    ann.save(path)
+    build = (row_diff_disk.build_int_row_diff_staged if int_form
+             else row_diff_disk.build_row_diff_staged)
+    got, want = (build([path], graph_io.load_graph(p, device=d),
+                       swap_dir=str(tmp_path / d.__str__()), mem_cap_mb=1,
+                       max_length=16).matrix.to_npz_dict()
+                 for d in (dev, "cpu"))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert np.array_equal(got[key], want[key]), key
