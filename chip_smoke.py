@@ -14,7 +14,11 @@ Phases (each raises on failure; the process exits non-zero):
      of 112 x 128 for the alignment DP, whose wave route is timed in
      turns with its long route) and at edge cases; then the three build
      kernels at 5 to 8 lanes (the sort of the Protein k = 31 collect's
-     lanes, partition and merges at 2^25, the sort's edge cases) and the
+     lanes, partition and merges at 2^25, the sort's edge cases); past
+     8 lanes at 2^25 (sort_packed by lane groups at L = 9, 10 and 16
+     with 0 and 2 payloads, partition_compact one launch a group at
+     L = 9 and 16, merge_sorted's co-rank route at L = 9 and 16 with
+     |B| << |A| and |A| = |B|); and the
      DP with BLOSUM62 (sigma = 27) and a 32 x 32 table on both routes;
      prints the median times of the kernel, of its plain version and
      (where one exists) of one PyTorch library call, and its bound.
@@ -122,6 +126,24 @@ Phases (each raises on failure; the process exits non-zero):
         --disk-swap, build_row_diff_staged, a 128 MiB spill cap that
         makes 2 runs) of 3a's label_{i % 10} annotation, equal to 3h's
         in-memory row_diff. The three build kernels must launch there.
+     serve. In 3a, after 3h: the k = 20 graph (33.5 M rows) served from
+        this process (server/http_server.py serve, background) with
+        3a's label_{i % 10} column annotation, 3h's row_diff_brwt form
+        of it and 3e's count annotation; 4 client threads each send 8
+        POST /search of 2^10 of 3a's reads to the column and to the
+        row_diff_brwt server; then, 4 times each, one at a time:
+        /search of 2^10 reads (column server), /search with_signature,
+        /search align and /align (2^8 of 3b's
+        reads), /search abundance_sum (count server), GET /stats and
+        /column_labels. Every response equals the answer built in this
+        process from BatchQuery / Aligner; the row_diff_brwt server
+        launches sort_packed and partition_compact. Logs requests/s,
+        reads/s and p50 / p99 latency per endpoint.
+     wide. 3a's 2^25 codes at k = 65, canonical (9 lanes), cold and
+        warm: real edges equal a host gold (the distinct forward windows
+        and their reverse complements); the
+        three build kernels launched; at 2^18 codes the card's build
+        equals the CPU's array for array.
   4. the CLI (build, stats and align in processes of their own, the
      rest through its main in this process): build, annotate, query,
      query --align, align (TSV and --json) and stats with --device
@@ -142,7 +164,10 @@ Phases (each raises on failure; the process exits non-zero):
      --parts-total 2 --part-idx 0/1 with concatenate, build --disk-swap,
      build --num-shards 4, merge --num-shards 2, coordinator with two
      worker processes (card), build --reference from a VCF and its
-     .vcf.gz, each graph's stats equal to the direct build's.
+     .vcf.gz, each graph's stats equal to the direct build's; and
+     server_query on the canonical graph in a process of its own, query
+     --address against it (each record labelled with its own name), and
+     build -v (the construct and serialize spans on stderr).
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -189,15 +214,22 @@ def cuda_ms(fn, reps=5):
 
 
 def max_abs_err(got, want):
+    """The largest absolute difference, compared where the tensors lie
+    (on the card: no copy of 2^25-entry lanes to the host), one lane at
+    a time."""
     import torch
     err = 0
     for g, w in zip(got, want):
-        g = torch.as_tensor(g).cpu().to(torch.int64)
-        w = torch.as_tensor(w).cpu().to(torch.int64)
+        g, w = torch.as_tensor(g), torch.as_tensor(w)
         if g.shape != w.shape:
             raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
-        if g.numel():
-            err = max(err, int((g - w).abs().max()))
+        if not g.numel():
+            continue
+        rows = g.shape[0] if g.dim() > 1 else 1
+        for gi, wi in zip(g.reshape(rows, -1), w.to(g.device).reshape(rows,
+                                                                      -1)):
+            err = max(err, int((gi.to(torch.int64) - wi.to(torch.int64))
+                               .abs().max()))
     return err
 
 
@@ -491,6 +523,61 @@ def phase_wide_lanes(gen, dev):
     torch.cuda.empty_cache()
 
 
+def wide_lanes(gen, n, L, dev, pad=0.01):
+    """(L, n) random lanes with PAD at ``pad`` of the columns and equal
+    keys in the high lanes (values 0-3), so that every lane group
+    decides some order."""
+    import torch
+    from metagraph_tpu_torch.common import packed
+    x = torch.randint(-2**31, 2**31, (L, n), generator=gen,
+                      dtype=torch.int64, device=dev).to(torch.int32)
+    x[: L // 2] &= 3
+    x[:, torch.rand(n, generator=gen, device=dev) < pad] = packed.PAD_LANE
+    return x
+
+
+def phase_past_eight_lanes(gen, dev):
+    """The build kernels past their 8 lanes (k > 64 over the 4-bit
+    alphabets, k > 32 over Protein), at 2^25 entries, bit for bit
+    against the plain versions: sort_packed by lane groups at L = 9, 10
+    and 16 with 0 and 2 payloads, partition_compact one launch a group
+    at L = 9 and 16, merge_sorted's co-rank route at L = 9 and 16 with
+    |B| << |A| and |A| = |B|; logs the kernel's, the plain version's
+    and the bound's ms."""
+    import torch
+    from metagraph_tpu_torch.common import merge
+    n = N_CODES
+    for L in (9, 10, 16):
+        x = wide_lanes(gen, n, L, dev)
+        for E in (0, 2):
+            err, ms, plain, _, (bms, _) = check_sort(gen, dev, 0, 0, E,
+                                                     time_it=True, x=x)
+            log(f"sort_packed L={L} E={E} N=2^25 (lane groups, 1 % PAD): "
+                f"bit-exact, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+                f"bound {bms:.3f} ms (median of 5)")
+        if L != 10:
+            res = check_partition(gen, dev, n, L, n, 0.5, E=1, time_it=True)
+            err, ms, plain, lib_ms, (bms, _) = res
+            log(f"partition_compact L={L} N=2^25 keep=0.5 (one launch a "
+                f"lane group): bit-exact, kernel {ms:.3f} ms, plain "
+                f"{plain:.3f} ms, library x[:, keep] {lib_ms:.3f} ms, bound "
+                f"{bms:.3f} ms (median of 5)")
+            check_partition(gen, dev, 100003, L, 1000, 0.7, E=2)
+            a, _ = merge.sort_packed_plain(x)
+            for nb, what in ((1 << 12, "|B| << |A|"), (n, "|A| = |B|")):
+                b, _ = merge.sort_packed_plain(
+                    wide_lanes(gen, nb, L, dev))
+                err, ms, plain, _, (bms, _) = check_merge(
+                    gen, dev, 0, 0, L, time_it=True, a=a, b=b)
+                log(f"merge_sorted L={L} |A|={n} |B|={nb} ({what}, the "
+                    f"co-rank route): bit-exact, kernel {ms:.3f} ms, plain "
+                    f"{plain:.3f} ms, bound {bms:.3f} ms (median of 5)")
+                del b
+            del a
+        del x
+        torch.cuda.empty_cache()
+
+
 def phase_kernels(dev):
     import torch
     from metagraph_tpu_torch.common import packed
@@ -543,6 +630,7 @@ def phase_kernels(dev):
         "sides, all-PAD, heavy duplicates): bit-exact")
     summary["sort_packed"] = phase_sort(gen, dev)
     phase_wide_lanes(gen, dev)
+    phase_past_eight_lanes(gen, dev)
     summary["pallas_dp"] = phase_align_dp(dev)
     return summary
 
@@ -706,37 +794,57 @@ def dp_wide_tables(rng, dev):
 # phase 3: the main path
 # ---------------------------------------------------------------------------
 
+def _window_ints(c, K):
+    """The 2-bit integers (first value most significant) of every K-window
+    (K <= 32) of ``c``, values 0..3 as uint64, by doubling: windows of
+    1, 2, 4, ... values built in place, the parts of K joined from the
+    window's end; a few passes and arrays, not two a character."""
+    nw = len(c) - K + 1
+    v = c.copy()
+    t = np.empty_like(v)
+    out = np.zeros(nw, np.uint64)
+    size, done = 1, 0                 # v holds windows of ``size`` values
+    while True:
+        if K & size:                  # this part ends where the last began
+            done += size
+            np.left_shift(v[K - done:K - done + nw], np.uint64(2 * (done -
+                                                                    size)),
+                          out=t[:nw])
+            out |= t[:nw]
+        if 2 * size > K:
+            return out
+        n = len(v) - size
+        t[:n] = v[size:]
+        v[:n] <<= np.uint64(2 * size)
+        v[:n] |= t[:n]
+        size *= 2
+
+
 def fwd_kmer_ints(codes, K):
     """2-bit k-mer integers (ACGT -> 0..3, first char most significant)
     of every window of an ACGT code array."""
-    c = codes.astype(np.uint64) - np.uint64(1)
-    nw = len(c) - K + 1
-    fwd = np.zeros(nw, np.uint64)
-    for j in range(K):                  # in place: no array per step
-        np.left_shift(fwd, np.uint64(2), out=fwd)
-        np.bitwise_or(fwd, c[j:j + nw], out=fwd)
-    return fwd
+    c = codes.astype(np.uint64)
+    c -= np.uint64(1)
+    return _window_ints(c, K)
 
 
 def rc_kmer_ints(codes, K):
-    """2-bit integers of the reverse complements of every window."""
-    c = np.uint64(4) - codes.astype(np.uint64)      # the complement
-    nw = len(c) - K + 1
-    rc = np.zeros(nw, np.uint64)
-    for j in range(K - 1, -1, -1):      # in place: no array per step
-        np.left_shift(rc, np.uint64(2), out=rc)
-        np.bitwise_or(rc, c[j:j + nw], out=rc)
-    return rc
+    """2-bit integers of the reverse complements of every window: the
+    windows of the reversed complement, in reverse order."""
+    c = np.uint64(4) - codes[::-1].astype(np.uint64)   # the complement
+    return _window_ints(c, K)[::-1]
 
 
 def revcomp_ints(x, K):
-    """Reverse complements of 2-bit k-mer integers."""
-    out = np.zeros_like(x)
-    x = x.copy()
-    for _ in range(K):
-        out = (out << np.uint64(2)) | (np.uint64(3) - (x & np.uint64(3)))
-        x >>= np.uint64(2)
-    return out
+    """Reverse complements of 2-bit k-mer integers: complement every
+    digit, reverse the 32 digits of the word by swaps, keep the top K."""
+    y = ~np.asarray(x, np.uint64)
+    for shift, mask in ((2, 0x3333333333333333), (4, 0x0F0F0F0F0F0F0F0F),
+                        (8, 0x00FF00FF00FF00FF), (16, 0x0000FFFF0000FFFF)):
+        s, m = np.uint64(shift), np.uint64(mask)
+        y = ((y >> s) & m) | ((y & m) << s)
+    y = (y >> np.uint64(32)) | (y << np.uint64(32))
+    return y >> np.uint64(64 - 2 * K)
 
 
 def gold_real_edges(codes, K, mode):
@@ -759,7 +867,10 @@ def check_graph(boss, codes, K, mode):
     from metagraph_tpu_torch.kmer import packing
     lanes = boss.edge_lanes
     real = int((~packing.contains_sentinel(lanes, K, 4)).sum())
+    t0 = time.time()
     gold = gold_real_edges(codes, K, mode)
+    log(f"k={K} {mode}: the numpy gold of real edges in "
+        f"{time.time() - t0:.1f} s (host)")
     if real != gold:
         raise AssertionError(f"k={K} {mode}: {real} real edges, numpy gold "
                              f"{gold}")
@@ -923,9 +1034,12 @@ def phase_main_path(dev):
                        "phase 3g on the k=20 graph")
         log(f"3g launch counts on the k=20 graph's paths: "
             f"{surface['graph launches']}")
-        surface["anno launches"], surface["anno"], rd_ref = phase_anno(
-            graph, ann, cnt_ann, codes, records, labels, reads, tmp)
-        del cnt_ann
+        (surface["anno launches"], surface["anno"], rd_ref,
+         rdb_ann) = phase_anno(graph, ann, cnt_ann, codes, records, labels,
+                               reads, tmp)
+        surface["serve launches"] = phase_serve(graph, ann, rdb_ann,
+                                                cnt_ann, reads, aln_reads)
+        del cnt_ann, rdb_ann
         results["3i row_diff"] = scaleout_row_diff(graph, tmp, rd_ref,
                                                    ann.matrix.nnz)
         del rd_ref
@@ -1707,8 +1821,8 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
     partition_compact. The files are not written (their bytes are fixed
     by the data and the format: PERF.md §6), but for the label
     column that phase 3i converts on disk. Returns the launch counts of
-    the conversions and queries, the per-form rows and the in-memory
-    row_diff of the labels."""
+    the conversions and queries, the per-form rows, the in-memory
+    row_diff of the labels and their row_diff_brwt annotation."""
     import torch
     from metagraph_tpu_torch.anno import brwt, coords, int_brwt, row_diff
     from metagraph_tpu_torch.anno import unique_row
@@ -1787,6 +1901,8 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
             query(a, rs[:256])
             if (src, name) == ("labels", "row_diff"):
                 rd_ref = m.to_npz_dict()        # phase 3i's staged build
+            if (src, name) == ("labels", "row_diff_brwt"):
+                rdb_ann = a                     # 3-serve serves it
             (got, dt), q_peak = peak_of(timed, query, a, rs)
             if got != col_out[n_reads]:
                 bad = next(i for i, (x, y) in enumerate(
@@ -1822,7 +1938,217 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
     anno_cpu_parity(codes, graph.device)
     log(f"3h total {time.time() - t_phase:.1f} s (the CPU comparison "
         f"{time.time() - t_cpu:.1f} s)")
-    return launches, rows, rd_ref
+    return launches, rows, rd_ref, rdb_ann
+
+
+# ---------------------------------------------------------------------------
+# phase 3-serve: the query server at full width
+# ---------------------------------------------------------------------------
+
+SERVE_CLIENTS = 4               # client threads
+SERVE_POSTS = 8                 # POST /search per client
+SERVE_READS = 1 << 10           # reads per traffic request
+SERVE_SMALL = 1 << 8            # reads per single request
+SERVE_REPEATS = 4               # each single request, one at a time
+
+
+def percentile_ms(seconds, q):
+    return float(np.percentile(np.asarray(seconds) * 1e3, q))
+
+
+def expected_search(bq, seqs, with_signature=False, with_counts=False,
+                    aligned=None):
+    """What POST /search must answer for ``seqs`` (named 0, 1, ... as the
+    client names them), built in this process from ``BatchQuery``;
+    ``aligned``: each read's best alignment or None (``align``)."""
+    entries = []
+    seqs = [a.sequence if a is not None else s
+            for s, a in zip(seqs, aligned or [None] * len(seqs))]
+    if with_signature:
+        tops = bq.get_top_label_signatures_batch(seqs, 100, 0.7)
+        results = [[{"sample": lab, "kmer_count": int(mask.sum()),
+                     "signature": "".join("1" if b else "0" for b in mask)}
+                    for lab, mask in t] for t in tops]
+    else:
+        tops = bq.get_top_labels_batch(seqs, 100, 0.7,
+                                       with_kmer_counts=with_counts)
+        results = [[{"sample": lab, "kmer_count": int(c)} for lab, c in t]
+                   for t in tops]
+    for i, (seq, res) in enumerate(zip(seqs, results)):
+        entry = {"seq_description": str(i), "results": res}
+        a = (aligned or [None] * len(seqs))[i]
+        if a is not None:
+            entry.update(sequence=seq.decode(), score=int(a.score),
+                         cigar=a.cigar)
+        entries.append(entry)
+    return entries
+
+
+def phase_serve(graph, ann, rdb_ann, cnt_ann, reads, aln_reads):
+    """3-serve. Phase 3a's k = 20 graph (33.5 M rows) served from this
+    process (``serve(..., background=True)`` on 127.0.0.1) three times:
+    with 3a's label_{i % 10} column annotation, with 3h's row_diff_brwt
+    form of it, and with 3e's count annotation. Traffic: for the column
+    and the row_diff_brwt servers, 4 client threads each sending 8 POST
+    /search of 2^10 of 3a's reads (discovery_fraction 0.7, num_labels
+    100); then, one at a time, 4 times each: /search of 2^10 reads on
+    the column server, /search with_signature, /search align (2^8 of
+    3b's reads) and /align on the row_diff_brwt server, /search
+    abundance_sum on the count server (2^8 reads), GET /stats and
+    /column_labels. Every response equals the answer built in
+    this process from BatchQuery / Aligner; the row_diff_brwt server
+    launches sort_packed and partition_compact. Logs requests/s, reads/s
+    and p50 / p99 latency per endpoint; returns the launch counts."""
+    import collections
+    import concurrent.futures
+    from metagraph_tpu_torch.align.aligner import Aligner
+    from metagraph_tpu_torch.engine.annotated_dbg import (AnnotatedDbg,
+                                                           BatchQuery)
+    from metagraph_tpu_torch.server.client import GraphClientJson
+    from metagraph_tpu_torch.server.http_server import serve
+
+    t_phase = time.time()
+    aligner = Aligner(graph)
+    adbgs = {"column": AnnotatedDbg(graph=graph, annotation=ann),
+             "row_diff_brwt": AnnotatedDbg(graph=graph, annotation=rdb_ann),
+             "counts": AnnotatedDbg(graph=graph, annotation=cnt_ann)}
+    servers = {name: serve(a, aligner, port=0, background=True)
+               for name, a in adbgs.items()}
+    clients = {name: GraphClientJson("127.0.0.1", h.server_address[1])
+               for name, h in servers.items()}
+    latency = collections.defaultdict(list)
+
+    def call(what, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out, status = fn(*args, **kw)
+        latency[what].append(time.perf_counter() - t0)
+        if status != 200:
+            raise AssertionError(f"3-serve {what}: HTTP {status}")
+        return out
+
+    n_traffic = SERVE_CLIENTS * SERVE_POSTS * SERVE_READS
+    traffic = [r.decode() for r in reads[:n_traffic]]
+    launches = {}
+    try:
+        for form in ("column", "row_diff_brwt"):
+            # the answers, and their time in this process one request's
+            # reads at a time, without HTTP, JSON or other requests
+            bq = BatchQuery(adbgs[form])
+            t0 = time.time()
+            want = [e for lo in range(0, n_traffic, SERVE_READS)
+                    for e in expected_search(
+                        bq, reads[lo:lo + SERVE_READS])]
+            in_process = time.time() - t0
+            zero_launches()
+            client = clients[form]
+
+            def client_thread(c):
+                outs = []
+                for p in range(SERVE_POSTS):
+                    lo = (c * SERVE_POSTS + p) * SERVE_READS
+                    outs.append((lo, call(f"{form} /search", client.search,
+                                          traffic[lo:lo + SERVE_READS],
+                                          top_labels=100,
+                                          discovery_threshold=0.7)))
+                return outs
+
+            t0 = time.time()
+            with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+                answers = [out for f in [ex.submit(client_thread, c)
+                                         for c in range(SERVE_CLIENTS)]
+                           for out in f.result()]
+            wall = time.time() - t0
+            for lo, got in answers:
+                if got != want[lo:lo + SERVE_READS]:
+                    raise AssertionError(f"3-serve {form} /search of reads "
+                                         f"{lo}..: differs from BatchQuery")
+            lat = latency[f"{form} /search"]
+            log(f"3-serve {form}: {len(answers)} POST /search of "
+                f"{SERVE_READS} reads from {SERVE_CLIENTS} client threads "
+                f"in {wall:.3f} s = {len(answers) / wall:.2f} requests/s, "
+                f"{n_traffic / wall:.0f} reads/s; latency p50 "
+                f"{percentile_ms(lat, 50):.1f} ms, p99 "
+                f"{percentile_ms(lat, 99):.1f} ms; every response equals "
+                f"BatchQuery's (in this process, one request's reads at a "
+                f"time: {n_traffic / in_process:.0f} reads/s)")
+            launches[form] = read_launches()
+            if form == "column":
+                column_first = want[:SERVE_READS]
+        small = reads[:SERVE_SMALL]
+        aln_small = aln_reads[:SERVE_SMALL]
+        rdb_bq = BatchQuery(adbgs["row_diff_brwt"])
+        aligned = [r[0] if r else None
+                   for r in aligner.align_batch(aln_small)]
+        singles = [
+            ("column", "/search alone",
+             lambda c: c.search(traffic[:SERVE_READS], top_labels=100,
+                                discovery_threshold=0.7), column_first),
+            ("row_diff_brwt", "/search with_signature",
+             lambda c: c.search([r.decode() for r in small], top_labels=100,
+                                discovery_threshold=0.7,
+                                with_signature=True),
+             expected_search(rdb_bq, small, with_signature=True)),
+            ("row_diff_brwt", "/search align",
+             lambda c: c.search([r.decode() for r in aln_small],
+                                top_labels=100, discovery_threshold=0.7,
+                                align=True),
+             expected_search(rdb_bq, aln_small, aligned=aligned)),
+            ("row_diff_brwt", "/align",
+             lambda c: c.align([r.decode() for r in aln_small]),
+             [{"seq_description": str(i),
+               "alignments": [a.to_json(str(i))] if a is not None else []}
+              for i, a in enumerate(aligned)]),
+            ("counts", "/search abundance_sum",
+             lambda c: c.search([r.decode() for r in small], top_labels=100,
+                                discovery_threshold=0.7,
+                                abundance_sum=True),
+             expected_search(BatchQuery(adbgs["counts"]), small,
+                             with_counts=True)),
+            ("row_diff_brwt", "/stats", lambda c: c.stats(),
+             {"graph": {"k": graph.k, "nodes": int(graph.num_nodes()),
+                        "mode": graph.mode},
+              "annotation": {"labels": rdb_ann.num_labels,
+                             "objects": rdb_ann.matrix.num_rows,
+                             "relations": rdb_ann.matrix.nnz}}),
+            ("row_diff_brwt", "/column_labels", lambda c: c.column_labels(),
+             ann.encoder.labels)]
+        n_aligned = sum(a is not None for a in aligned)
+        if n_aligned < 0.75 * len(aligned):     # 1/8 of them are random
+            raise AssertionError(f"3-serve: {n_aligned} of {len(aligned)} "
+                                 f"reads aligned in process")
+        # every expected answer is built above: the counts from here on
+        # are the servers' requests' alone
+        zero_launches()
+        for form, what, fn, want in singles:
+            for _ in range(SERVE_REPEATS):
+                if call(what, fn, clients[form]) != want:
+                    raise AssertionError(f"3-serve {what} on the {form} "
+                                         f"server differs from the "
+                                         f"in-process answer")
+        launches["singles"] = read_launches()
+    finally:
+        for httpd in servers.values():
+            httpd.shutdown()
+    for _, what, _, _ in singles:
+        lat = latency[what]
+        n = SERVE_READS if what == "/search alone" else SERVE_SMALL
+        log(f"3-serve {what}: {SERVE_REPEATS} requests one at a time, "
+            f"{SERVE_REPEATS / sum(lat):.2f} requests/s"
+            + (f", {SERVE_REPEATS * n / sum(lat):.0f} reads/s of {n}"
+               if what.startswith(("/search", "/align")) else "")
+            + f"; latency p50 {percentile_ms(lat, 50):.1f} ms, p99 "
+            f"{percentile_ms(lat, 99):.1f} ms; equal to the in-process "
+            f"answer")
+    rdb = {k: launches["row_diff_brwt"][k] + launches["singles"][k]
+           for k in launches["singles"]}
+    check_launched(rdb, ("sort_packed", "partition_compact"),
+                   "the row_diff_brwt server")
+    total = {k: sum(v[k] for v in launches.values()) for k in rdb}
+    log(f"3-serve launch counts: column server {launches['column']}, "
+        f"row_diff_brwt server {rdb}; {n_aligned} of "
+        f"{len(aligned)} alignment reads aligned; phase "
+        f"{time.time() - t_phase:.1f} s")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -2266,6 +2592,93 @@ def check_align_cuda_cpu(dev):
                                     f"{with_cigar})")
     log("align at 2^20 codes: CUDA results equal the CPU results in every "
         "field on 512 reads, with CIGARs and score-only")
+
+
+# ---------------------------------------------------------------------------
+# phase 3a-wide: a build past the kernels' 8 lanes
+# ---------------------------------------------------------------------------
+
+WIDE_K = 65                     # 65 DNA chars of 4 bits: 9 lanes
+
+
+def wide_gold(codes, K=WIDE_K):
+    """Distinct 65-mers of a canonical graph of ``codes`` (every window
+    valid): the forward windows and their reverse complements (the
+    windows of the reversed complement). Counted exactly: when the first
+    32 characters of all these windows are distinct, so are the windows,
+    and there are 2 (N - 64) of them (an odd K has no palindromes);
+    otherwise the windows are counted by their pieces (32, 32 and 1
+    characters)."""
+    assert K == 65
+    nw = len(codes) - K + 1
+    rc_codes = (np.uint8(5) - codes)[::-1]          # A <-> T, C <-> G
+    ints = [fwd_kmer_ints(c, 32) for c in (codes, rc_codes)]
+    firsts = np.concatenate([v[:nw] for v in ints])
+    firsts.sort()
+    if not np.any(firsts[1:] == firsts[:-1]):
+        return 2 * nw
+    pieces = np.concatenate([np.stack([v[:nw], v[32:32 + nw],
+                                       c[64:].astype(np.uint64)])
+                             for v, c in zip(ints, (codes, rc_codes))],
+                            axis=1)
+    return len(np.unique(pieces, axis=1).T)
+
+
+def phase_wide_build(dev):
+    """3a-wide. Phase 3a's 2^25 codes at k = 65, canonical (9 lanes: the
+    sorts and compactions by lane groups, the rc and dummy merges by
+    co-ranking), cold and warm: real edges equal the numpy gold (the
+    distinct forward windows and reverse complements, counted exactly
+    on the host); the three build kernels launched;
+    and the card's build of a 2^18-code prefix equals the CPU's array
+    for array. Returns the warm build's launch counts."""
+    import torch
+    from metagraph_tpu_torch.common import packed
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.kmer import packing
+    codes = np.random.default_rng(SEED).integers(1, 5, N_CODES).astype(
+        np.uint8)                                   # phase 3a's codes
+    boss, cold = timed_build(codes, WIDE_K, "canonical", dev)
+    del boss
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    boss, warm = timed_build(codes, WIDE_K, "canonical", dev)
+    launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    lanes = boss.edge_lanes
+    real = int((~packing.contains_sentinel(lanes, WIDE_K, 4)).sum())
+    ordered = bool(torch.all(packed.lt(lanes[:, :-1], lanes[:, 1:])))
+    t_gold = time.time()
+    gold = wide_gold(codes)
+    t_gold = time.time() - t_gold
+    check_launched(launches, BUILD_KERNELS, "the k=65 build")
+    if real != gold:
+        raise AssertionError(f"k={WIDE_K} canonical: {real} real edges, "
+                             f"numpy gold {gold}")
+    if not ordered:
+        raise AssertionError(f"k={WIDE_K}: edge_lanes not strictly "
+                             f"increasing")
+    rate = (N_CODES - WIDE_K + 1) / warm
+    log(f"3a-wide build k={WIDE_K} canonical ({lanes.shape[0]} lanes) 2^25 "
+        f"codes: {boss.num_edges} edges, {real} real = numpy gold "
+        f"(counted on the host in {t_gold:.1f} s); cold {cold:.3f} s, "
+        f"warm {warm:.3f} s = {rate / 1e6:.2f} M k-mers/s; peak device "
+        f"memory {peak:.1f} GiB; launches {launches}")
+    del boss, lanes
+    torch.cuda.empty_cache()
+    prefix = codes[:1 << 18]
+    got, want = (build_boss_from_codes(prefix, WIDE_K, mode="canonical",
+                                       bits_per_count=8, device=d)
+                 for d in (dev, "cpu"))
+    for name in ("W", "last", "F", "NF", "weights", "edge_lanes"):
+        if not torch.equal(getattr(got, name).cpu(), getattr(want, name)):
+            raise AssertionError(f"k={WIDE_K} at 2^18 codes: CUDA {name} "
+                                 f"differs from CPU")
+    log(f"3a-wide: at 2^18 codes the card's k={WIDE_K} canonical build "
+        f"equals the CPU's (W, last, F, NF, weights, edge_lanes)")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3370,6 +3783,53 @@ def cli_alphabets_small(tmp, run, rng, fa, names, seqs, gb):
         "align equal the fast graph's")
 
 
+def cli_serve(tmp, g, fa, want, env, device, run):
+    """Phase 4, the server: server_query on the canonical graph in a
+    process of its own; query --address against it prints each record
+    with its own label, as query -i -a does; and build -v prints the
+    construct and serialize spans on stderr."""
+    import socket
+    from metagraph_tpu_torch.server.client import GraphClient
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.time()
+    with open(os.path.join(tmp, "server.log"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "metagraph_tpu_torch.cli.main",
+             "server_query", "-i", g, "-a", g + ".column.annodbg.npz",
+             "--port", str(port), "--device", device], env=env, cwd=tmp,
+            stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            client = GraphClient("127.0.0.1", port)
+            while not client.ready():
+                if proc.poll() is not None or time.time() - t0 > 300:
+                    raise AssertionError("CLI server_query did not serve")
+                time.sleep(0.2)
+            t_ready = time.time() - t0
+            out = run("query", "--address", f"127.0.0.1:{port}", fa)
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    if out.splitlines() != want:
+        raise AssertionError(f"CLI query --address output wrong: "
+                             f"{out.splitlines()[:3]}")
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(buf):
+        run("build", "-v", "-k", "31", "-o", os.path.join(tmp, "gv"), fa)
+    spans = [line.split(":")[0] for line in buf.getvalue().splitlines()
+             if line.startswith("[span] ")]
+    if spans != ["[span] construct", "[span] serialize"]:
+        raise AssertionError(f"CLI build -v spans wrong: {spans}")
+    log(f"CLI server_query (its own process, serving after {t_ready:.1f} "
+        f"s) and query --address: every record labelled with its own name; "
+        f"build -v printed the construct and serialize spans")
+
+
 def phase_cli(device):
     from metagraph_tpu_torch.graph.io import load_graph
     rng = np.random.default_rng(SEED + 2)
@@ -3414,6 +3874,7 @@ def phase_cli(device):
             if out.splitlines() != want:
                 raise AssertionError(f"CLI query {' '.join(extra)} output "
                                      f"wrong: {out.splitlines()[:3]}")
+        cli_serve(tmp, g, fa, want, env, device, run)
         stats = run_proc("stats", g)
         if "mode: canonical" not in stats:
             raise AssertionError(f"CLI stats output wrong:\n{stats}")
@@ -3507,6 +3968,7 @@ def main():
     summary = timed(phase_kernels, dev)
     build_launches, (align_launches, _), main_results, surface = timed(
         phase_main_path, dev)
+    wide_launches = timed(phase_wide_build, dev)
     primary_launches = timed(phase_primary, dev)
     timed(phase_kmc, dev)
     timed(phase_sidecar, dev)
@@ -3529,13 +3991,16 @@ def main():
              "metagraph_tpu/align/pallas_dp.py:185", align_launches)):
         err, ms, plain, lib_ms, (bound_ms, bound_by) = summary[kname]
         # the main path's runs, phase 3f's (its builds and its
-        # score-only Protein alignment), phase 3g's, 3h's and 3i's
+        # score-only Protein alignment), phase 3g's, 3h's, 3i's, the
+        # k = 65 build's and the server's
         n_launch = (launches[kname] + (alph_align if kname == "pallas_dp"
                                        else alph_launches)[kname]
                     + graph_launches[kname]
                     + surface["graph launches"][kname]
                     + surface["anno launches"][kname]
-                    + scale_launches[kname] + rd_launches[kname])
+                    + scale_launches[kname] + rd_launches[kname]
+                    + wide_launches[kname]
+                    + surface["serve launches"][kname])
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n_launch,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,

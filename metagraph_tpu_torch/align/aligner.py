@@ -403,7 +403,8 @@ class Aligner:
     def align_batch(self, seqs: Sequence[bytes],
                     both_strands: bool = False,
                     num_alternative_paths: int = 1,
-                    with_cigar: bool = True
+                    with_cigar: bool = True,
+                    min_exact_match: Optional[float] = None
                     ) -> List[List[GraphAlignment]]:
         """Batched alignment (reference DBGAligner::align_batch): seeding,
         beam extension and the CIGAR DP run batched on the graph's device.
@@ -411,7 +412,10 @@ class Aligner:
         ``with_cigar=False`` is the score-only path (query --align): ends
         come from the ``pallas_dp`` kernel; the min_exact_match filter
         uses the lower bound score / match_score <= num_matches, so it
-        keeps a subset of the CIGAR path's results."""
+        keeps a subset of the CIGAR path's results. ``min_exact_match``
+        overrides the config's for this call only (a server's request)."""
+        if min_exact_match is None:
+            min_exact_match = self.config.min_exact_match
         orientations = [(False, list(seqs))]
         if both_strands:
             orientations.append((True, [_revcomp(s) for s in seqs]))
@@ -426,11 +430,10 @@ class Aligner:
         for i, rs in enumerate(per_read):
             n = max(len(seqs[i]), 1)
             if with_cigar:
-                rs = [a for a in rs
-                      if a.num_matches >= self.config.min_exact_match * n]
+                rs = [a for a in rs if a.num_matches >= min_exact_match * n]
             else:
                 rs = [a for a in rs
-                      if a.score / match >= self.config.min_exact_match * n]
+                      if a.score / match >= min_exact_match * n]
             rs.sort(key=lambda a: -a.score)
             # alternative seeds can converge on the same alignment: dedupe
             seen, uniq = set(), []

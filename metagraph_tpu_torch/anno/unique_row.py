@@ -10,8 +10,9 @@ The build runs on the matrix's device: each row's columns, padded with
 -1 to the widest row, are packed into uint32 lanes as ``col + 1``
 fields (the first column most significant; a field's width a power of
 two), so the lanes' order is the padded rows' lexicographic order,
-which ``np.unique(axis=0)`` gives in the JAX package; ``sort_packed`` sorts them (least significant 8 lanes
-first when there are more), and each run of equal rows is one code.
+which ``np.unique(axis=0)`` gives in the JAX package; ``merge.lex_order``
+orders them (``sort_packed`` over lane groups), and each run of equal
+rows is one code.
 """
 
 from __future__ import annotations
@@ -24,18 +25,6 @@ import torch
 from ..common import merge as pmerge
 from ..common import packed
 from .matrix import RowHits, RowSparse, expand_ranges, host_tensor
-
-
-def _lex_order(lanes: torch.Tensor) -> torch.Tensor:
-    """Stable ascending order (int64 permutation) of (L, n) lanes, by
-    ``sort_packed`` over chunks of at most ``MAX_LANES`` lanes, least
-    significant first."""
-    L, n = lanes.shape
-    perm = torch.arange(n, dtype=torch.int32, device=lanes.device)
-    for hi in range(L, 0, -pmerge.MAX_LANES):
-        chunk = lanes[max(hi - pmerge.MAX_LANES, 0):hi][:, perm.long()]
-        _, (perm,) = pmerge.sort_packed(chunk.contiguous(), perm)
-    return perm.to(torch.int64)
 
 
 @dataclass
@@ -86,7 +75,7 @@ class UniqueRow(RowHits):
         padded[rows, pos] = m.cols
         bits = 1 << (max(C.bit_length(), 1) - 1).bit_length()  # divides 32
         lanes = packed.from_fields((padded.flip(1) + 1).T, bits)
-        order = _lex_order(lanes)
+        order = pmerge.lex_order(lanes)
         start = packed.neighbor_ne(lanes[:, order])
         codes = torch.empty((m.num_rows,), dtype=torch.int32, device=dev)
         codes[order] = (torch.cumsum(start, 0) - 1).to(torch.int32)

@@ -11,13 +11,17 @@ reads an annotation takes every form. The scale-out builds: build
 and worker (suffix-sharded chunks), --disk-swap (streamed collect),
 --num-shards (out-of-core), merge --num-shards and transform_anno
 --disk-swap; and VCF input (build --reference ref.fa variants.vcf).
+The query server: server_query (HTTP, server/http_server.py) and query
+--address (its client).
 
 PyTorch counterpart of ``metagraph_tpu/cli/main.py`` for the subset the
 port covers; stdout is byte for byte that of the JAX CLI. Every command
 takes ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of
-the kernels), the global ``-v``, ``-p`` and ``--debug``, and the JAX
-CLI's inert reference options (a warning names each one set). Any other
-subcommand or flag exits non-zero with "not yet ported".
+the kernels), the global ``-v`` and ``--debug`` (the telemetry spans on
+stderr; ``METAGRAPH_TPU_TRACE_DIR`` set: a ``torch.profiler`` trace of
+the command there), ``-p``, and the JAX CLI's inert reference options (a warning
+names each one set). Any other flag exits non-zero with "not yet
+ported".
 
     python -m metagraph_tpu_torch.cli.main build -k 31 -o graph a.fa b.fa
     find . -name "*.fa" | python -m metagraph_tpu_torch.cli.main build -k 31
@@ -64,11 +68,17 @@ subcommand or flag exits non-zero with "not yet ported".
         -o v variants.vcf.gz
     python -m metagraph_tpu_torch.cli.main query --query-coords -i graph \
         -a graph.coord.annodbg.npz q.fa
+    python -m metagraph_tpu_torch.cli.main server_query -i graph \
+        -a graph.column.annodbg.npz --port 5555
+    python -m metagraph_tpu_torch.cli.main query --address 127.0.0.1:5555 q.fa
+    python -m metagraph_tpu_torch.cli.main build -v -k 65 --mode canonical \
+        -o g reads.fa
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -77,8 +87,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-# the JAX CLI's other subcommands
-_NOT_PORTED = ("server_query",)
+from ..common import telemetry
 
 
 # reference options the JAX CLI accepts on every subcommand with no
@@ -117,18 +126,14 @@ def log(msg: str):
 def _load_graph(path, device, wrap_primary: bool = True):
     """Load a graph; a primary graph comes wrapped in ``CanonicalDbg``
     unless ``wrap_primary`` is false."""
-    from ..graph.io import load_graph
-    g = load_graph(path, device=device)
-    if wrap_primary and g.mode == "primary":
-        from ..graph.canonical import CanonicalDbg
-        return CanonicalDbg(base=g)
-    return g
+    from ..graph.io import load_graph, load_query_graph
+    return (load_query_graph if wrap_primary else load_graph)(
+        path, device=device)
 
 
 def cmd_build(args):
     import torch
     from ..graph import io as graph_io
-    from ..graph.boss_construct import check_lanes
     from ..graph.dbg_succinct import DbgSuccinct
     from ..kmer.alphabets import ALPHABETS
     from ..seqio.fasta import kmer_counts_sidecar
@@ -140,14 +145,11 @@ def cmd_build(args):
     if not args.fnames:
         raise SystemExit("build: no input files (arguments or a stdin list)")
     alphabet = ALPHABETS[args.alphabet]
-    try:
-        check_lanes(args.k, alphabet)
-    except NotImplementedError as e:
-        raise SystemExit(f"build: {e}") from e
     bits_per_count = args.count_width if args.count_kmers else 0
     vcf = any(f.endswith((".vcf", ".vcf.gz")) for f in args.fnames)
     t0 = time.time()
     valid = None
+    from_sequences = False
     if any(f.endswith((".kmc_pre", ".kmc_suf")) for f in args.fnames):
         if len(args.fnames) != 1:
             raise SystemExit("build: one KMC database per build")
@@ -163,12 +165,16 @@ def cmd_build(args):
     else:
         boss, valid = _build_from_sequences(args, alphabet, bits_per_count,
                                             vcf)
+        from_sequences = True
     log(f"Graph construction: {time.time() - t0:.2f} s")
-    if valid is not None:
-        valid = torch.from_numpy(valid).to(boss.device)
-    graph = DbgSuccinct.from_boss(boss, alphabet, args.mode, valid=valid)
-    log(f"Serialized to "
-        f"{graph_io.save_graph(args.outfile_base, graph, args.state)}")
+    # the JAX CLI spans the serialization of sequence builds only
+    with (telemetry.span("serialize") if from_sequences
+          else contextlib.nullcontext()):
+        if valid is not None:
+            valid = torch.from_numpy(valid).to(boss.device)
+        graph = DbgSuccinct.from_boss(boss, alphabet, args.mode, valid=valid)
+        out = graph_io.save_graph(args.outfile_base, graph, args.state)
+    log(f"Serialized to {out}")
 
 
 def _read_sequences(args) -> list:
@@ -226,6 +232,8 @@ def _build_from_sequences(args, alphabet, bits_per_count: int, vcf: bool):
                 and args.suffix_len == 0)
     seqs = (_stream_sequences(args.fnames) if streamed
             else _read_sequences(args))
+    # the spans of the JAX CLI: construct_ooc and construct, counting the
+    # input characters where they are known before the build
     if args.disk_swap:
         from ..parallel.streaming import build_boss_streaming
         # a directory engages the on-disk run tier; --mem-cap-gb bounds
@@ -239,20 +247,25 @@ def _build_from_sequences(args, alphabet, bits_per_count: int, vcf: bool):
                       else None), device=args.device), None
     if args.num_shards > 1 and args.mode == "basic":
         from ..parallel.outofcore import build_boss_out_of_core
-        return build_boss_out_of_core(
-            seqs, args.k, alphabet=alphabet, n_shards=args.num_shards,
-            bits_per_count=bits_per_count,
-            keep_kmer_index=args.state != "small", verbose=args.verbose,
-            return_valid=True, device=args.device)
+        with telemetry.span("construct_ooc",
+                            items=0 if streamed else sum(map(len, seqs)),
+                            unit="chars"):
+            return build_boss_out_of_core(
+                seqs, args.k, alphabet=alphabet, n_shards=args.num_shards,
+                bits_per_count=bits_per_count,
+                keep_kmer_index=args.state != "small", verbose=args.verbose,
+                return_valid=True, device=args.device)
     if args.suffix_len > 0 or args.num_shards > 1:
         from ..parallel.sharded_build import build_boss_sharded
         return build_boss_sharded(
             seqs, args.k, alphabet=alphabet, mode=args.mode,
             bits_per_count=bits_per_count,
             suffix_len=max(args.suffix_len, 1), device=args.device), None
-    return build_boss(seqs, args.k, alphabet=alphabet, mode=args.mode,
-                      bits_per_count=bits_per_count,
-                      device=args.device), None
+    with telemetry.span("construct", items=sum(map(len, seqs)),
+                        unit="chars"):
+        return build_boss(seqs, args.k, alphabet=alphabet, mode=args.mode,
+                          bits_per_count=bits_per_count,
+                          device=args.device), None
 
 
 def _suffix_codes(args, alphabet):
@@ -656,11 +669,57 @@ def _query_batch(bq, seqs, args):
     return results, lambda res: "\t" + args.anno_labels_delimiter.join(res)
 
 
+def _query_address(args):
+    """query --address HOST:PORT (client mode): each batch of reads goes
+    to a running server_query as one POST /search; one line per read,
+    its labels as the server ranks them."""
+    from ..seqio.fasta import iter_batches
+    from ..server.client import GraphClient
+    unsupported = [f for f, v in [
+        ("--count-labels", args.count_labels),
+        ("--count-kmers/--query-counts", args.query_counts),
+        ("--print-signature", args.print_signature),
+        ("--query-coords", args.query_coords),
+        ("--count-quantiles", args.count_quantiles),
+        ("--fwd-and-reverse", args.fwd_and_reverse)] if v]
+    if unsupported:
+        raise SystemExit("not supported with --address: "
+                         + " ".join(unsupported))
+    host, _, port = args.address.rpartition(":")
+    client = GraphClient(host or "127.0.0.1", int(port))
+    idx = 0
+    for batch in iter_batches(args.fnames, batch_bytes=args.batch_size):
+        raw, _ = client._json.search(
+            [r.seq.decode() for r in batch],
+            top_labels=min(args.num_top_labels, 2 ** 31 - 1),
+            discovery_threshold=args.discovery_fraction,
+            align=args.align or args.batch_align)
+        by_desc = {}
+        for entry in raw:
+            by_desc.setdefault(entry["seq_description"],
+                               [r["sample"] for r in entry.get("results",
+                                                               [])])
+        for i, rec in enumerate(batch):
+            labels = (by_desc.get(f"{i}", [])
+                      or by_desc.get(rec.name.decode(), []))
+            if labels or not args.suppress_unlabeled:
+                sys.stdout.write(
+                    f"{idx}\t{rec.name.decode()}\t"
+                    + args.anno_labels_delimiter.join(labels) + "\n")
+            idx += 1
+
+
 def cmd_query(args):
+    if args.address:                # no index here: no tensors, no torch
+        _query_address(args)
+        return
     from ..anno.annotator import Annotation
     from ..engine.annotated_dbg import AnnotatedDbg, BatchQuery
     from ..seqio.fasta import BatchFeeder, SeqRecord, iter_batches
 
+    if not (args.infile_base and args.annotation):
+        raise SystemExit("query needs -i and -a (or --address for client "
+                         "mode)")
     g = _load_graph(args.infile_base, args.device)
     ann = Annotation.load(args.annotation, device=args.device)
     bq = BatchQuery(AnnotatedDbg(graph=g, annotation=ann))
@@ -777,10 +836,11 @@ def cmd_align(args):
             out.close()
         return
     t0 = time.time()
-    all_results = _align_or_exit(
-        aligner, [r.seq for r in recs], "align",
-        both_strands=args.align_both_strands,
-        num_alternative_paths=args.num_alternative_paths)
+    with telemetry.span("align_batch", items=len(recs), unit="reads"):
+        all_results = _align_or_exit(
+            aligner, [r.seq for r in recs], "align",
+            both_strands=args.align_both_strands,
+            num_alternative_paths=args.num_alternative_paths)
     dt = max(time.time() - t0, 1e-9)
     log(f"Aligned {len(recs)} reads in {dt:.2f} s ({len(recs) / dt:.0f} "
         f"reads/s)")
@@ -1570,6 +1630,13 @@ def cmd_worker(args):
     log("Worker done: queue drained")
 
 
+def cmd_server_query(args):
+    """server_query: serve a graph and its annotation over HTTP
+    (server/http_server.py) until interrupted."""
+    from ..server.http_server import run_server
+    run_server(args)
+
+
 def cmd_relax_brwt(args):
     """Widen a BRWT's nodes up to ``--relax-arity`` children."""
     from ..anno.annotator import Annotation
@@ -1593,9 +1660,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "kernels' plain versions)")
-        # the JAX CLI's global flags, accepted on every subcommand with no
-        # effect here: -v / --debug turn on its telemetry spans (not yet
-        # ported), -p its thread count (PyTorch sizes its own pools)
+        # the JAX CLI's global flags: -v / --debug turn on the telemetry
+        # spans (stderr); -p, its thread count, has no effect here
+        # (PyTorch sizes its own pools)
         sp.add_argument("-v", "--verbose", action="store_true")
         sp.add_argument("-p", "--parallel", type=int, default=1)
         sp.add_argument("--debug", action="store_true")
@@ -1722,8 +1789,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("fnames", nargs="+")
 
     sp = add("query", cmd_query)
-    sp.add_argument("-i", "--infile-base", required=True)
-    sp.add_argument("-a", "--annotation", required=True)
+    sp.add_argument("-i", "--infile-base", default=None)
+    sp.add_argument("-a", "--annotation", default=None)
+    sp.add_argument("--address", default="",
+                    help="HOST:PORT of a running server_query: send the "
+                         "reads there instead of loading an index")
     sp.add_argument("--count-labels", action="store_true")
     sp.add_argument("--count-kmers", "--query-counts", dest="query_counts",
                     action="store_true",
@@ -1934,6 +2004,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="label of the aggregated column")
     sp.add_argument("fnames", nargs="+")
 
+    sp = add("server_query", cmd_server_query)
+    sp.add_argument("-i", "--infile-base", required=True)
+    sp.add_argument("-a", "--annotation", required=True)
+    sp.add_argument("--port", type=int, default=5555)
+    sp.add_argument("--host", default="127.0.0.1")
+
     sp = add("relax_brwt", cmd_relax_brwt)
     sp.add_argument("-o", "--outfile-base", required=True)
     sp.add_argument("--relax-arity", type=int, default=8)
@@ -1943,17 +2019,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in _NOT_PORTED:
-        raise SystemExit(f"metagraph: '{argv[0]}' is not yet ported")
     args, unknown = build_parser().parse_known_args(argv)
     if unknown:
         raise SystemExit(f"metagraph {args.command}: "
                          f"{' '.join(unknown)}: not yet ported")
+    args.verbose = args.verbose or args.debug
     for attr, flag in _INERT_ATTRS:
         if getattr(args, attr) not in (None, False):
             log(f"WARNING: {flag} is accepted for reference-script "
                 f"compatibility but has no effect in this implementation")
-    args.func(args)
+    # -v turns the spans on for this command (the JAX CLI leaves them on
+    # for the rest of the process); METAGRAPH_TPU_TRACE_DIR traces it
+    verbose = telemetry.VERBOSE
+    telemetry.VERBOSE = verbose or args.verbose
+    try:
+        with telemetry.device_trace():
+            args.func(args)
+    finally:
+        telemetry.VERBOSE = verbose
 
 
 if __name__ == "__main__":

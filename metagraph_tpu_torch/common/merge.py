@@ -12,7 +12,9 @@ PyTorch counterpart of ``metagraph_tpu/common/merge.py``:
     (replaces the Pallas ``_merge_call``); hand-written CUDA in
     ``csrc/merge.cu``; plain version a stable sort of the concatenation.
     Both versions are stable with A first on ties, where the TPU's
-    bitonic kernel was not.
+    bitonic kernel was not. Up to ``MAX_LANES`` lanes the kernel merges
+    by merge-path tiles; past them by co-ranking (each key's output
+    position is its own index plus its rank in the other side).
   * ``sort_packed`` — full sort of lanes with payloads (replaces the JAX
     ``sort_packed``: leaf sorts, then segmented ``_merge_call`` levels);
     hand-written CUDA in ``csrc/sort.cu``: an LSD radix sort over 8-bit
@@ -24,6 +26,14 @@ PyTorch counterpart of ``metagraph_tpu/common/merge.py``:
     partition) and scatters. PAD is its own bin, after 0xFF. Plain
     version ``packed.sort``. Both are stable, where the TPU's was not,
     so the two agree bit for bit, payloads included.
+
+The partition and sort kernels take at most ``MAX_LANES`` lanes a
+launch. Wider keys (k > 64 over the 4-bit alphabets, k > 32 over
+Protein) go through the same wrappers in groups of at most
+``MAX_LANES`` lanes: ``partition_compact`` launches once a group with the
+same keep mask, and ``sort_packed`` runs an LSD sort over the groups,
+least significant first, with the permutation as its one payload
+(``lex_order``).
 
 Each wrapper dispatches on the device of the tensor it is given and on
 nothing else: a CPU tensor takes the plain version, a CUDA tensor
@@ -48,8 +58,15 @@ merge_launches = 0
 sort_launches = 0
 sort_digit_passes = 0
 
+# the most lanes one partition, sort or merge-path launch takes
 MAX_LANES = 8
 _MAX_EXTRAS = 2
+
+
+def _lane_groups(L: int) -> list:
+    """(lo, hi) lane ranges of at most MAX_LANES, most significant
+    first."""
+    return [(lo, min(lo + MAX_LANES, L)) for lo in range(0, L, MAX_LANES)]
 
 
 def _check_cuda_args(what: str, lanes: Sequence[torch.Tensor],
@@ -61,9 +78,8 @@ def _check_cuda_args(what: str, lanes: Sequence[torch.Tensor],
     for x in lanes:
         if x.dtype != packed.LANE_DTYPE or x.dim() != 2:
             raise TypeError(f"{what}: lanes must be (L, N) int32")
-        if not 1 <= x.shape[0] <= MAX_LANES:
-            raise ValueError(f"{what}: {x.shape[0]} lanes; the kernel "
-                             f"takes 1 to {MAX_LANES}")
+        if x.shape[0] < 1:
+            raise ValueError(f"{what}: no lanes")
         if x.device != dev:
             raise ValueError(f"{what}: operands on different devices")
     for e in extras:
@@ -127,13 +143,35 @@ def partition_compact(x: torch.Tensor, keep: torch.Tensor, capacity: int,
     """Stable compaction: returns (lanes (L, capacity), TRUE count as a
     0-d int32 tensor, extras). Kept entries first in their original
     order; PAD / ``extra_fill`` past the count; entries past
-    ``capacity`` dropped (the count still counts them)."""
+    ``capacity`` dropped (the count still counts them). More than
+    ``MAX_LANES`` lanes take one launch a lane group."""
+    if x.shape[0] > MAX_LANES:
+        return _partition_wide(x, keep, capacity, extras, extra_fill)
     if x.device.type == "cpu":
         return partition_compact_plain(x, keep, capacity, *extras,
                                        extra_fill=extra_fill)
     if x.device.type != "cuda":
         raise ValueError(f"partition_compact: no kernel for {x.device}")
     return _partition_cuda(x, keep, capacity, extras, extra_fill)
+
+
+def _partition_wide(x, keep, capacity, extras, extra_fill):
+    """One compaction a lane group, all with the same keep mask and
+    capacity; the payloads ride with the first group. The groups' counts
+    must agree, which is asserted on the device (no host sync)."""
+    outs, counts, eouts = [], [], ()
+    for i, (lo, hi) in enumerate(_lane_groups(x.shape[0])):
+        out, count, e = partition_compact(
+            x[lo:hi], keep, capacity, *(extras if i == 0 else ()),
+            extra_fill=extra_fill)
+        outs.append(out)
+        counts.append(count)
+        eouts = eouts or e
+    counts = torch.stack(counts)
+    torch._assert_async(torch.all(counts == counts[0]),
+                        "partition_compact: lane groups kept different "
+                        "counts")
+    return torch.cat(outs), counts[0], eouts
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +189,12 @@ def merge_sorted_plain(a: torch.Tensor, b: torch.Tensor,
 
 
 def _merge_cuda(a, b, a_extras, b_extras):
+    """Up to MAX_LANES lanes the merge-path route (splits, then one block
+    a tile of whole keys in shared memory); past them the co-rank route
+    (one thread a key: a binary search of the other side over all lanes,
+    then a scatter)."""
     global merge_launches
+    corank = a.shape[0] > MAX_LANES
     _check_cuda_args("merge_sorted", [a, b],
                      list(a_extras) + list(b_extras), len(a_extras))
     L, na = a.shape
@@ -171,6 +214,16 @@ def _merge_cuda(a, b, a_extras, b_extras):
     out = torch.empty((L, ntot), dtype=packed.LANE_DTYPE, device=dev)
     eouts = [torch.empty((ntot,), dtype=e.dtype, device=dev)
              for e in a_extras]
+    if corank:
+        with torch.cuda.device(dev):
+            status = lib.mg_merge_corank(
+                a.data_ptr(), na, b.data_ptr(), nb, L, *_pad_ptrs(a_extras),
+                *_pad_ptrs(b_extras), len(a_extras), out.data_ptr(),
+                *_pad_ptrs(eouts),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _cuda.check(status, "merge_sorted (co-rank)")
+        merge_launches += 1
+        return out, tuple(eouts)
     tile = lib.mg_merge_tile()
     splits = torch.empty((-(-ntot // tile) + 1,), dtype=torch.int64,
                          device=dev)
@@ -289,11 +342,36 @@ def _sort_cuda(x, extras):
     return out, tuple(eouts)
 
 
+def lex_order(x: torch.Tensor) -> torch.Tensor:
+    """Stable ascending order (int64 permutation) of (L, n) lanes of any
+    L: ``sort_packed`` over lane groups of at most MAX_LANES, least
+    significant first, each carrying the permutation as its payload.
+    Stable sorts keep the earlier groups' order among equal keys, and PAD
+    (all ones in every group) stays last."""
+    L, n = x.shape
+    perm = None
+    for lo, hi in reversed(_lane_groups(L)):
+        if perm is None:
+            chunk = x[lo:hi].contiguous()
+            perm = torch.arange(n, dtype=torch.int32, device=x.device)
+        else:
+            chunk = x[lo:hi][:, perm.long()]
+        _, (perm,) = sort_packed(chunk, perm)
+    return perm.to(torch.int64)
+
+
 def sort_packed(x: torch.Tensor, *extras: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Stable ascending sort of (L, N) lanes (lane 0 most significant,
     unsigned; PAD last) with 0-2 four-byte payloads riding along.
-    Returns (lanes, extras); equal keys keep their input order."""
+    Returns (lanes, extras); equal keys keep their input order. More
+    than MAX_LANES lanes sort by ``lex_order``, then one gather of the
+    lanes and payloads."""
+    if x.shape[0] > MAX_LANES:
+        if any(e.shape != x.shape[1:] for e in extras):
+            raise TypeError("sort_packed: payloads must match the key count")
+        perm = lex_order(x)
+        return x[:, perm], tuple(e[perm] for e in extras)
     if x.device.type == "cpu":
         return sort_packed_plain(x, *extras)
     if x.device.type != "cuda":

@@ -218,18 +218,6 @@ def _sort_unique_stage(lanes: torch.Tensor, counts: torch.Tensor, count):
     return ulanes, ucounts, ucount
 
 
-def check_lanes(K: int, alphabet: Alphabet):
-    """The kernels take up to 8 lanes of 32 bits: K chars of B bits must
-    fit in 256 (K <= 64 for the 4-bit alphabets, K <= 32 for Protein)."""
-    L = packed.num_lanes(K, alphabet.bits_per_char)
-    if L > pmerge.MAX_LANES:
-        raise NotImplementedError(
-            f"k = {K} over {alphabet.name} needs {L} lanes of 32 bits; "
-            f"builds past the kernels' {pmerge.MAX_LANES}-lane limit "
-            f"(k <= {pmerge.MAX_LANES * 32 // alphabet.bits_per_char}) "
-            f"are not yet ported")
-
-
 def collect_kmers(seqs: Sequence[bytes | str], K: int,
                   alphabet: Alphabet = DNA, canonical: bool = False,
                   extra_codes=None, device="cuda", with_bounds: bool = True,
@@ -242,7 +230,6 @@ def collect_kmers(seqs: Sequence[bytes | str], K: int,
     ``bounds`` the (sink, source) dummy-candidate node keys, or None
     without ``with_bounds``."""
     dev = devmod.resolve(device)
-    check_lanes(K, alphabet)
     suffix = tuple(suffix)
     with_bounds = with_bounds and not suffix
     codes_np = (encode_sequences(seqs, alphabet) if extra_codes is None
@@ -279,7 +266,6 @@ def collect_counted_kmers(chars: np.ndarray, counts: np.ndarray, K: int,
     char codes and (n,) counts, clamped to 2^31 - 1. Returns (lanes
     (L, max(n_u, 1)), counts, n_u)."""
     dev = devmod.resolve(device)
-    check_lanes(K, alphabet)
     B = alphabet.bits_per_char
     n = chars.shape[0]
     lanes = packing.pack_from_chars(

@@ -93,6 +93,17 @@ def load_graph(path: str, device="cuda") -> DbgSuccinct:
     return dbg_from_numpy(d, device)
 
 
+def load_query_graph(path: str, device="cuda"):
+    """Load a graph as ``query``, ``align`` and ``server_query`` read it:
+    a primary graph comes wrapped in ``CanonicalDbg``, so a read matches
+    whichever orientation of its k-mers is stored."""
+    g = load_graph(path, device=device)
+    if g.mode == "primary":
+        from .canonical import CanonicalDbg
+        return CanonicalDbg(base=g)
+    return g
+
+
 def index_bytes(graph: DbgSuccinct) -> int:
     """Total bytes of the loaded index tensors (for stats bytes/edge)."""
     vr = graph.valid_rank

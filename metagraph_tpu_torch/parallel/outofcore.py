@@ -289,7 +289,6 @@ def build_boss_out_of_core(seqs, k: int, alphabet: Alphabet = DNA,
     from .streaming import code_chunks
     dev = devmod.resolve(device)
     K, B = k, alphabet.bits_per_char
-    bc.check_lanes(K, alphabet)
     L = packed.num_lanes(K, B)
     max_count = (1 << bits_per_count) - 1 if bits_per_count else (1 << 31) - 1
     t_start = time.time()

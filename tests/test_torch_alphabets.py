@@ -8,8 +8,9 @@ builds basic graphs only) at small k and at the full-lane k (31 chars of
 sidecars over each alphabet; the CLI flows ``build``, ``stats``,
 ``annotate``, ``query`` and ``align`` byte for byte, each package's
 ``.dbg.npz`` loading in the other (the JAX package's
-``tests/test_cli.py`` DNA5 and Protein flows among them); the builds past
-the kernels' 8-lane limit refused; and the primary finish of
+``tests/test_cli.py`` DNA5 and Protein flows among them); builds past
+the kernels' 8 lanes (lane groups), through the API and the CLI; and the
+primary finish of
 DNACaseSent, whose ``g`` and ``t`` codes set their field's top bit,
 against a numpy gold at the k where node keys fill their lanes.
 """
@@ -84,21 +85,33 @@ def test_boss_identical(name, mode, k):
     same_boss(got, want, f"{name} {mode} k={k}")
 
 
-@pytest.mark.parametrize("name,k", [("Protein", 33), ("DNA5", 65),
-                                    ("DNA", 65)])
-def test_past_eight_lanes_refused(name, k, tmp_path, capsys):
-    """k = 32 over Protein and k = 64 over the 4-bit alphabets fill the
-    8 lanes; one char more is refused, naming the limit."""
+@pytest.mark.parametrize("name,mode,k", [
+    ("DNA", "canonical", 65), ("DNA5", "basic", 80), ("Protein", "basic", 48),
+    ("DNA", "primary", 65)])
+def test_past_eight_lanes_refused(name, mode, k, tmp_path):
+    """Builds past the kernels' 8 lanes were once refused; they run in
+    lane groups now (9, 10, 12 and 9 lanes here) and equal the JAX
+    package's, through the API and through the CLI."""
+    from metagraph_tpu_torch.graph.io import load_graph
     alphabet = ALPHABETS[name]
-    assert packed.num_lanes(k - 1, alphabet.bits_per_char) == 8
-    with pytest.raises(NotImplementedError, match="8-lane limit"):
-        tbc.build_boss([b"A" * (2 * k)], k, alphabet, device="cpu")
+    assert packed.num_lanes(k, alphabet.bits_per_char) > 8
+    rng = np.random.default_rng(k + len(name))
+    seqs = records(rng, name, 3, 300) if name != "DNA" else [
+        bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 300))
+        for _ in range(3)]
+    want = jbuild(seqs, k, JALPH[name], mode, bits_per_count=8)
+    got = tbc.build_boss(seqs, k, alphabet, mode, bits_per_count=8,
+                         device="cpu")
+    assert got.num_edges > 600
+    same_boss(got, want, f"{name} {mode} k={k}")
     fa = tmp_path / "in.fa"
-    fa.write_bytes(b">r\n" + b"A" * (2 * k) + b"\n")
-    with pytest.raises(SystemExit) as e:
-        tmain(["build", "-k", str(k), "--alphabet", name, "-o",
-               str(tmp_path / "g"), str(fa), "--device", "cpu"])
-    assert "not yet ported" in str(e.value) and "8-lane" in str(e.value)
+    fa.write_bytes(b"".join(b">r%d\n%s\n" % (i, s)
+                            for i, s in enumerate(seqs)))
+    tmain(["build", "-k", str(k), "--alphabet", name, "--mode", mode,
+           "--count-kmers", "-o", str(tmp_path / "g"), str(fa),
+           "--device", "cpu"])
+    same_boss(load_graph(str(tmp_path / "g"), device="cpu").boss, want,
+              f"CLI {name} {mode} k={k}")
 
 
 def test_collect_bbit_extract_and_bounds():

@@ -126,18 +126,45 @@ def test_count_saturation():
     assert int(tb.weights.max()) == 31
 
 
-@pytest.mark.parametrize("call", [
-    # past the kernels' 8 lanes: 65 chars of 4 bits (DNA5 itself is
-    # ported; tests/test_torch_alphabets.py holds it against the JAX
-    # package)
-    lambda: tbc.collect_counted_kmers(np.ones((3, 65), np.uint8),
-                                      np.ones(3), 65, alphabet=TDNA5,
-                                      device="cpu"),
-    # a suffix bucket's collect past the 8 lanes
-    lambda: tbc.collect_kmers([b"ACGT" * 20], 65, alphabet=TDNA5,
-                              suffix=(1,), device="cpu"),
-    lambda: tbc.build_boss([b"ACGT" * 20], 65, alphabet=TDNA5, device="cpu"),
-])
-def test_unported_options_raise(call):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        call()
+def wide_collect(pkg, path):
+    """One collect of k = 65 DNA5 (9 lanes) through ``path``: the
+    pre-counted one (KMC and count sidecars), a suffix bucket's, or the
+    plain one; (lanes as uint32, counts, n) on the host."""
+    from metagraph_tpu.graph import boss_construct as jbc
+    from metagraph_tpu.kmer.alphabets import DNA5 as JDNA5
+    from metagraph_tpu.parallel import sharded_build as jsb
+    from metagraph_tpu_torch.parallel import sharded_build as tsb
+    rng = np.random.default_rng(65)
+    seqs = [bytes(rng.choice(np.frombuffer(b"ACGTN", np.uint8), 300,
+                             p=[0.24] * 4 + [0.04])) for _ in range(3)]
+    chars = rng.integers(1, 6, (200, 65)).astype(np.uint8)
+    chars[:20] = chars[20:40]                      # duplicates sum
+    counts = rng.integers(1, 9, 200)
+    jax_side = pkg == "jax"
+    alph = JDNA5 if jax_side else TDNA5
+    dev = {} if jax_side else {"device": "cpu"}
+    if path == "counted":
+        lanes, cnts, n = (jbc if jax_side else tbc).collect_counted_kmers(
+            chars, counts, 65, alph, canonical=True, **dev)
+    elif path == "suffix":
+        lanes, cnts, n = (jsb if jax_side else tsb).build_shard_kmers(
+            seqs, 65, (2,), alph, **dev)
+    else:
+        lanes, cnts, n = (jbc if jax_side else tbc).collect_kmers(
+            seqs, 65, alph, **dev)[:3]
+    n = int(n)
+    lanes = (np.asarray(lanes) if jax_side
+             else tpk.lanes_to_numpy(lanes))[:, :n]
+    return lanes, np.asarray(cnts)[:n], n
+
+
+@pytest.mark.parametrize("path", ["counted", "suffix", "plain"])
+def test_unported_options_raise(path):
+    """Collects past the kernels' 8 lanes (65 chars of 4 bits) were once
+    refused; they run in lane groups now and equal the JAX package's."""
+    want = wide_collect("jax", path)
+    got = wide_collect("port", path)
+    assert got[2] == want[2] > 50
+    assert want[0].shape[0] == 9
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])

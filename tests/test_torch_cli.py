@@ -9,6 +9,11 @@ full k-mer seed, and both packages fail on a read that needs suffix
 seeds (a fault of the reference, matched).
 """
 
+import os
+import subprocess
+import sys
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -321,16 +326,49 @@ def test_query_align_identical(fasta, capsys, mode):
                      + argv[1:]) == want
 
 
-@pytest.mark.parametrize("argv", [
-    ["server_query", "-i", "g", "-a", "a.column.annodbg.npz"],
-    ["query", "--address", "127.0.0.1:5555", "-i", "g", "-a",
-     "a.column.annodbg.npz", "q.fa"],
-])
-def test_unported_exits_nonzero(argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        tmain(argv)
-    assert e.value.code not in (0, None)
-    assert "not yet ported" in str(e.value.code)
+@pytest.mark.parametrize("command", ["server_query", "query --address"])
+def test_unported_exits_nonzero(command, fasta, capsys, tmp_path):
+    """server_query and query --address were once refused; now each
+    makes a round trip: the port's server_query (a process of its own)
+    answers the JAX CLI's query --address, and the port's query
+    --address asks a JAX server, both printing what the JAX CLI's query
+    -i -a prints."""
+    from test_torch_server import free_port, serve_jax
+    g = str(tmp_path / "g")
+    inp, q = str(fasta / "in.fa"), str(fasta / "q.fa")
+    run(capsys, jmain, ["build", "-k", "15", "-o", g, inp])
+    run(capsys, jmain, ["annotate", "-i", g, "--anno-header", inp])
+    anno = g + ".column.annodbg.npz"
+    want = run(capsys, jmain, ["query", "-i", g, "-a", anno, q])
+    assert "rec3" in want
+    if command == "query --address":
+        httpd, port, _ = serve_jax(g, anno)
+        try:
+            assert tport(capsys, ["query", "--address", f"127.0.0.1:{port}",
+                                  q]) == want
+        finally:
+            httpd.shutdown()
+        return
+    from metagraph_tpu_torch.server.client import GraphClient
+    port = free_port()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "metagraph_tpu_torch.cli.main",
+         "server_query", "-i", g, "-a", anno, "--port", str(port),
+         "--device", "cpu"], env=dict(os.environ, PYTHONPATH=root),
+        stderr=subprocess.PIPE, text=True)
+    try:
+        client = GraphClient("127.0.0.1", port)
+        for _ in range(600):
+            if client.ready() or proc.poll() is not None:
+                break
+            time.sleep(0.1)
+        assert client.ready(), proc.stderr.read() if proc.poll() else ""
+        assert run(capsys, jmain, ["query", "--address",
+                                   f"127.0.0.1:{port}", q]) == want
+    finally:
+        proc.kill()
+        proc.wait()
 
 
 # the scale-out commands, unported until the parallel/ modules came:

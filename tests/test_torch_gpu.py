@@ -141,12 +141,19 @@ def test_kernels_count_launches(dev):
 
 
 def test_kernels_reject_bad_input(dev):
-    x = packed.full_pad(10, 9, dev)
+    """Malformed operands raise before a launch (9 lanes and more are
+    taken now: lane groups and the co-rank route)."""
+    keep = torch.ones(10, dtype=torch.bool, device=dev)
+    x = packed.full_pad(10, 0, dev)                     # no lanes
     with pytest.raises(ValueError):
-        merge.partition_compact(x, torch.ones(10, dtype=torch.bool,
-                                              device=dev), 10)
+        merge.partition_compact(x, keep, 10)
     with pytest.raises(ValueError):
         merge.merge_sorted(x, x)
+    wide = packed.full_pad(10, 9, dev)
+    with pytest.raises(ValueError):                     # lane counts differ
+        merge.merge_sorted(wide, packed.full_pad(10, 10, dev))
+    with pytest.raises(ValueError):                     # three payloads
+        merge.partition_compact(wide, keep, 10, *[keep.int()] * 3)
 
 
 def _keys(rng, n, L, hi, dev):
@@ -239,11 +246,12 @@ def test_sort_kernel_special_inputs(dev, kind):
 
 
 def test_sort_kernel_rejects_bad_input(dev):
-    with pytest.raises(ValueError):
-        merge.sort_packed(packed.full_pad(10, 9, dev))
-    with pytest.raises(TypeError):
-        merge.sort_packed(packed.full_pad(10, 2, dev),
-                          torch.zeros(9, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):                     # no lanes
+        merge.sort_packed(packed.full_pad(10, 0, dev))
+    for L in (2, 9):                # a payload that does not match the keys
+        with pytest.raises(TypeError):
+            merge.sort_packed(packed.full_pad(10, L, dev),
+                              torch.zeros(9, dtype=torch.int32, device=dev))
 
 
 def _pairs(rng, R, LQ, LR, dev):
@@ -924,3 +932,102 @@ def test_row_diff_staged_cuda_equals_cpu(dev, tmp_path, int_form):
     assert sorted(got) == sorted(want)
     for key in want:
         assert np.array_equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("L", [9, 10, 16])
+def test_past_eight_lanes_match_plain(dev, L):
+    """Past the kernels' 8 lanes: sort_packed by lane groups (0 and 2
+    payloads), partition_compact one launch a group (one count), and the
+    merge's co-rank route (|B| << |A| and |A| = |B|, ties and PAD)."""
+    rng = np.random.default_rng(L)
+    n = 50_003
+    lanes = rng.integers(0, 1 << 32, (L, n), dtype=np.uint64).astype(
+        np.uint32)
+    lanes[: L - 1] = rng.integers(0, 3, (L - 1, n))       # equal keys
+    lanes[:, rng.random(n) < 0.05] = 0xFFFFFFFF
+    xs = packed.lanes_from_numpy(lanes, dev)
+    extras = [torch.arange(n, dtype=torch.int32, device=dev),
+              torch.from_numpy(rng.integers(-2**31, 2**31, n)
+                               .astype(np.int32)).to(dev)]
+    s0, p0, m0 = (merge.sort_launches, merge.partition_launches,
+                  merge.merge_launches)
+    for E in (0, 2):
+        got, ge = merge.sort_packed(xs, *extras[:E])
+        want, we = merge.sort_packed_plain(xs, *extras[:E])
+        _same([got, *ge], [want, *we])
+    keep = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    for cap in (n, 777):
+        g = merge.partition_compact(xs, keep, cap, *extras, extra_fill=-1)
+        w = merge.partition_compact_plain(xs, keep, cap, *extras,
+                                          extra_fill=-1)
+        assert int(g[1]) == int(w[1])
+        _same([g[0], *g[2]], [w[0], *w[2]])
+    a, (ea,) = merge.sort_packed_plain(xs, extras[0])
+    for nb in (300, n):
+        b, (eb,) = merge.sort_packed_plain(xs[:, :nb].flip(1).contiguous(),
+                                           extras[1][:nb])
+        gm = merge.merge_sorted(a, b, (ea,), (eb,))
+        wm = merge.merge_sorted_plain(a, b, (ea,), (eb,))
+        _same([gm[0], *gm[1]], [wm[0], *wm[1]])
+    assert merge.sort_launches - s0 >= 2 * ((L + 7) // 8)
+    assert merge.partition_launches - p0 == 2 * ((L + 7) // 8)
+    assert merge.merge_launches - m0 == 2
+
+
+@pytest.mark.parametrize("name,mode,k", [("DNA", "canonical", 65),
+                                         ("DNA5", "basic", 80),
+                                         ("Protein", "basic", 48)])
+def test_wide_builds_cuda_equal_cpu(dev, name, mode, k):
+    """Builds of 9, 10 and 12 lanes at 2^16 codes: the card equals the
+    CPU, array for array."""
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.kmer.alphabets import ALPHABETS
+    codes = (_alphabet_codes(np.random.default_rng(k), name, 1 << 16)
+             if name != "DNA" else
+             np.random.default_rng(k).integers(1, 5, 1 << 16).astype(
+                 np.uint8))
+    got, want = (build_boss_from_codes(codes, k, ALPHABETS[name], mode=mode,
+                                       bits_per_count=8, device=d)
+                 for d in (dev, "cpu"))
+    _same_boss(got, want)
+
+
+def test_server_cuda_equals_cpu(dev):
+    """The query server over a graph on the card answers every endpoint
+    as the same server over the graph on the CPU, byte for byte."""
+    import json
+    import urllib.request
+    from metagraph_tpu_torch.align.aligner import Aligner
+    from metagraph_tpu_torch.engine.annotated_dbg import (AnnotatedDbg,
+                                                           annotate_sequences)
+    from metagraph_tpu_torch.graph.boss_construct import build_boss
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    from metagraph_tpu_torch.server.http_server import serve
+    rng = np.random.default_rng(5)
+    recs = [bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 300))
+            for _ in range(8)]
+    reads = "\n".join(f">r{i}\n{r[20:120].decode()}"
+                      for i, r in enumerate(recs))
+    bodies = []
+    for d in (dev, "cpu"):
+        g = DbgSuccinct.from_boss(build_boss(recs, 15, device=d))
+        ann = annotate_sequences(g, [(r, [f"l{i % 3}"]) for i, r in
+                                     enumerate(recs)]).finalize()
+        httpd = serve(AnnotatedDbg(graph=g, annotation=ann), Aligner(g),
+                      port=0, background=True)
+        port = httpd.server_address[1]
+        out = []
+        for endpoint, payload in (
+                ("search", dict(FASTA=reads)),
+                ("search", dict(FASTA=reads, with_signature=True)),
+                ("search", dict(FASTA=reads, align=True)),
+                ("align", dict(FASTA=reads)), ("stats", None),
+                ("column_labels", None)):
+            url = f"http://127.0.0.1:{port}/{endpoint}"
+            req = url if payload is None else urllib.request.Request(
+                url, data=json.dumps(payload).encode())
+            with urllib.request.urlopen(req) as r:
+                out.append(r.read())
+        httpd.shutdown()
+        bodies.append(out)
+    assert bodies[0] == bodies[1]

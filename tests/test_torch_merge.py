@@ -5,7 +5,9 @@ References: the JAX Pallas kernels run as ``tests/test_merge.py`` runs
 them (``interpret=True, force_pallas=True, chunk=1024``) and the JAX
 fallbacks (``packed.compact``, ``_merge_fallback``). Keys must match
 exactly; payloads exactly against the stable fallback, and as multisets
-within equal-key runs against the unstable interpret-mode merge.
+within equal-key runs against the unstable interpret-mode merge. Past 8
+lanes: the sort's and the partition's lane groups against the plain
+versions, and the merge's co-rank route, emulated in numpy.
 """
 
 import jax.numpy as jnp
@@ -177,3 +179,100 @@ def test_cuda_device_without_gpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdevice.resolve("cuda")
     assert tdevice.resolve("cpu") == torch.device("cpu")
+
+
+def _wide_keys(rng, L, n, dup=True, pad=0.1):
+    """(L, n) uint32 keys with equal keys (few values in the low lanes),
+    keys equal but for their last lane, and PAD columns."""
+    x = rng.integers(0, 1 << 32, (L, n), dtype=np.uint64).astype(np.uint32)
+    if dup:
+        x[: L - 2] = rng.integers(0, 3, (L - 2, n))
+        x[L - 2] = rng.integers(0, 5, n)
+    x[:, rng.random(n) < pad] = 0xFFFFFFFF
+    return x
+
+
+@pytest.mark.parametrize("L", [9, 10, 16])
+@pytest.mark.parametrize("E", [0, 2])
+def test_sort_packed_lane_groups(L, E):
+    """Past 8 lanes sort_packed sorts the lane groups least significant
+    first with the permutation as payload: the plain sort's order,
+    stable, PAD last, the payloads gathered once."""
+    rng = np.random.default_rng(L * 3 + E)
+    x = T(_wide_keys(rng, L, 3001))
+    extras = [torch.arange(3001, dtype=torch.int32), torch.from_numpy(
+        rng.integers(-9, 9, 3001).astype(np.int32))][:E]
+    got, ge = tmerge.sort_packed(x, *extras)
+    want, we = tpk.sort(x, *extras)
+    assert torch.equal(got, want)
+    for g, w in zip(ge, we):
+        assert torch.equal(g, w)
+    order = tmerge.lex_order(x)
+    assert torch.equal(x[:, order], want)
+    # the JAX package's sort of the same lanes
+    jl, _ = jpk.sort(jnp.asarray(tpk.lanes_to_numpy(x)))
+    np.testing.assert_array_equal(tpk.lanes_to_numpy(got), np.asarray(jl))
+
+
+@pytest.mark.parametrize("L", [9, 16])
+def test_partition_lane_groups(L):
+    """Past 8 lanes partition_compact compacts each lane group with the
+    same keep mask; payloads ride with the first; one count."""
+    rng = np.random.default_rng(L)
+    n = 2500
+    x = T(_wide_keys(rng, L, n, dup=False))
+    keep = torch.from_numpy(rng.random(n) < 0.4)
+    extras = [torch.arange(n, dtype=torch.int32),
+              torch.from_numpy(rng.integers(0, 99, n).astype(np.int32))]
+    for cap in (n, 600, n + 77):
+        got, count, ge = tmerge.partition_compact(x, keep, cap, *extras,
+                                                  extra_fill=-5)
+        want, wcount, we = tpk.compact(x, keep, cap, *extras, extra_fill=-5)
+        assert int(count) == int(wcount) == int(keep.sum())
+        assert torch.equal(got, want)
+        for g, w in zip(ge, we):
+            assert torch.equal(g, w)
+
+
+def corank_merge(a: np.ndarray, b: np.ndarray, ea, eb):
+    """The co-rank route of csrc/merge.cu in numpy: each key of A goes to
+    its index plus the count of B's keys below it (lower bound), each key
+    of B to its index plus the count of A's keys at or below it (upper
+    bound)."""
+    import bisect
+    ka = [tuple(c) for c in a.T.tolist()]
+    kb = [tuple(c) for c in b.T.tolist()]
+    out = np.zeros((a.shape[0], len(ka) + len(kb)), np.uint32)
+    eo = np.zeros(len(ka) + len(kb), np.int64)
+    taken = np.zeros(len(ka) + len(kb), bool)
+    for i, key in enumerate(ka):
+        pos = i + bisect.bisect_left(kb, key)
+        out[:, pos], eo[pos], taken[pos] = a[:, i], ea[i], True
+    for j, key in enumerate(kb):
+        pos = j + bisect.bisect_right(ka, key)
+        assert not taken[pos]
+        out[:, pos], eo[pos], taken[pos] = b[:, j], eb[j], True
+    assert taken.all()
+    return out, eo
+
+
+@pytest.mark.parametrize("L,na,nb", [(9, 3000, 40), (9, 1500, 1500),
+                                     (16, 700, 900), (12, 0, 50)])
+def test_merge_corank_route_matches_plain(L, na, nb):
+    """The co-rank route's positions (numpy emulation) give the plain
+    merge: sorted, stable, ties to A, PAD tails last (A's first); the
+    wrapper's merge past 8 lanes on the CPU equals both."""
+    rng = np.random.default_rng(L + na)
+    a = tpk.lanes_to_numpy(tpk.sort(T(_wide_keys(rng, L, na)))[0])
+    b = tpk.lanes_to_numpy(tpk.sort(T(_wide_keys(rng, L, nb)))[0])
+    ea, eb = np.arange(na), np.arange(na, na + nb)
+    want, (wp,) = tmerge.merge_sorted_plain(
+        T(a), T(b), (torch.from_numpy(ea.astype(np.int32)),),
+        (torch.from_numpy(eb.astype(np.int32)),))
+    out, eo = corank_merge(a, b, ea, eb)
+    np.testing.assert_array_equal(out, tpk.lanes_to_numpy(want))
+    np.testing.assert_array_equal(eo, wp.numpy())
+    got, (gp,) = tmerge.merge_sorted(
+        T(a), T(b), (torch.from_numpy(ea.astype(np.int32)),),
+        (torch.from_numpy(eb.astype(np.int32)),))
+    assert torch.equal(got, want) and torch.equal(gp, wp)

@@ -1,7 +1,7 @@
 """The port's out-of-core and streaming builds against the JAX package.
 
 ``build_boss_out_of_core`` (n_shards 1, 3 and 8, with and without counts,
-tiny pass-1 chunks), ``merge_boss_graphs_out_of_core``, the key
+tiny pass-1 chunks; k = 65 past the kernels' 8 lanes), ``merge_boss_graphs_out_of_core``, the key
 transforms of its queries against the JAX package's host ones and the
 target-key routing balance, and ``build_boss_streaming`` /
 ``collect_kmers_streaming`` (runs in RAM or on disk), all bit for bit
@@ -102,6 +102,18 @@ def test_out_of_core_identical(n_shards, bits):
     incore = tbc.build_boss(seqs, 9, bits_per_count=bits, device="cpu")
     same_arrays(jbuild(seqs, 9, bits_per_count=bits), incore, bits > 0)
     assert torch.equal(incore.W, tb.W)
+
+
+def test_out_of_core_past_eight_lanes():
+    """k = 65 (9 lanes: sorts and compactions in lane groups, the
+    co-rank merge's plain version) equals the JAX out-of-core build."""
+    seqs = seqs_of(65, 3, 250, 300)
+    kw = dict(n_shards=3, bits_per_count=8, chunk_codes=1 << 9,
+              keep_kmer_index=True)
+    jb = joc.build_boss_out_of_core(seqs, 65, **kw)
+    tb = toc.build_boss_out_of_core(seqs, 65, device="cpu", **kw)
+    assert tb.edge_lanes.shape[0] == 9
+    same_arrays(jb, tb, weights=True, lanes=True)
 
 
 def test_out_of_core_small_state_and_valid():
