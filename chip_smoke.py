@@ -144,6 +144,19 @@ Phases (each raises on failure; the process exits non-zero):
         and their reverse complements); the
         three build kernels launched; at 2^18 codes the card's build
         equals the CPU's array for array.
+     j. the distributed build (parallel/distributed.py, multihost.py):
+        build_boss_distributed_full on 3a's 2^25 codes at k = 31
+        canonical and k = 20 basic, cold then warm, at width 1 over
+        NCCL, width 4 as four processes sharing the card over gloo
+        (staged through host memory) and, where there are four cards,
+        width 4 over NCCL one card a rank; rank 0 is this process.
+        Checks: rank 0's graph equals 3a's array for array (on the
+        card), every other rank's digest equals rank 0's, partition,
+        merge and sort launch on every rank. Logs walls, edges and peak
+        memory per rank, bytes, rows and host seconds per route, the
+        transport and the launches per rank. Then 3g's reads as FASTA
+        through the native codec (native/) and seqio/fasta.py: equal
+        codes, both timed.
   4. the CLI (build, stats and align in processes of their own, the
      rest through its main in this process): build, annotate, query,
      query --align, align (TSV and --json) and stats with --device
@@ -2354,6 +2367,251 @@ def phase_scaleout(dev, ref):
 
 
 # ---------------------------------------------------------------------------
+# phase 3j: the distributed build (parallel/distributed.py, multihost.py)
+# ---------------------------------------------------------------------------
+
+DIST_BUILDS = ((31, "canonical"), (20, "basic"))
+DIST_WIDTH = 4
+DIST_TIMEOUT_S = 120
+
+
+def dist_text():
+    """3a's 2^25 codes as one record of text."""
+    codes = np.random.default_rng(SEED).integers(1, 5, N_CODES).astype(
+        np.uint8)
+    return LETTERS[codes].tobytes()
+
+
+def boss_digest(boss):
+    """Position-weighted int64 sums of a Boss's arrays, on the card: what
+    the other ranks' graphs are held to against rank 0's."""
+    import torch
+    out = []
+    for name in ("W", "last", "F", "edge_lanes"):
+        x = getattr(boss, name).to(torch.int64).reshape(-1)
+        w = torch.arange(x.numel(), device=x.device) % 1000003 + 1
+        out.append(int((x * w).sum()))
+    return out
+
+
+def dist_builds(mesh, text, check=None):
+    """One rank's runs of 3j: each (k, mode) of DIST_BUILDS cold, then
+    warm after a barrier, the warm run's launch counts, routes and peak
+    read around it. ``check(K, boss)`` holds the warm graph to 3a's."""
+    import torch
+    import torch.distributed as dist
+    from metagraph_tpu_torch.parallel.distributed import (
+        build_boss_distributed_full)
+    out = {}
+    for K, mode in DIST_BUILDS:
+        t0 = time.time()
+        boss = build_boss_distributed_full([text], K, mesh, mode=mode)
+        torch.cuda.synchronize()
+        cold = time.time() - t0
+        del boss
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mesh.routes.clear()
+        zero_launches()
+        dist.barrier(group=mesh.group)
+        t0 = time.time()
+        boss = build_boss_distributed_full([text], K, mesh, mode=mode)
+        torch.cuda.synchronize()
+        warm = time.time() - t0
+        res = dict(cold=cold, warm=warm, launches=read_launches(),
+                   peak=torch.cuda.max_memory_allocated() - base,
+                   routes={k: list(v) for k, v in mesh.routes.items()},
+                   shard_rows=list(mesh.shard_rows), edges=boss.num_edges,
+                   digest=boss_digest(boss), transport=mesh.transport)
+        if check is not None:
+            check(K, boss)
+        del boss
+        torch.cuda.empty_cache()
+        out[K] = res
+    return out
+
+
+def dist_rank(rank, width, addr, backend, queue):
+    """A spawned rank of 3j (rank >= 1): joins the group, builds, reports
+    its numbers (or its traceback) on ``queue``."""
+    import traceback
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+    from metagraph_tpu_torch.common import _cuda
+    from metagraph_tpu_torch.parallel import multihost
+    try:
+        multihost.initialize(addr, width, rank, device="cuda",
+                             backend=backend, timeout_s=60)
+        _cuda.lib()
+        queue.put((rank, dist_builds(multihost.global_mesh("cuda"),
+                                     dist_text())))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_width(width, backend, text, ref):
+    """3j at one width: ranks 1..width-1 spawned, this process rank 0 (it
+    holds 3a's graphs and compares on the card). Returns every rank's
+    numbers, rank order."""
+    import multiprocessing
+    import torch
+    import torch.distributed as dist
+    from metagraph_tpu_torch.parallel import multihost
+
+    def check(K, boss):
+        for name, want in ref[K, "ref"].items():
+            got = getattr(boss, name)
+            if (got is None) != (want is None) or (
+                    want is not None and not torch.equal(
+                        got, want.to(got.device))):
+                raise AssertionError(f"3j width {width} {backend} k={K}: "
+                                     f"{name} differs from 3a's graph")
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    addr = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=dist_rank,
+                         args=(r, width, addr, backend, queue))
+             for r in range(1, width)]
+    for p in procs:
+        p.start()
+    try:
+        multihost.initialize(addr, width, 0, device="cuda", backend=backend,
+                             timeout_s=60)
+        res = {0: dist_builds(multihost.global_mesh("cuda"), text, check)}
+        for _ in procs:
+            rank, got = queue.get(timeout=DIST_TIMEOUT_S)
+            if isinstance(got, str):
+                raise AssertionError(f"3j rank {rank} failed:\n{got}")
+            res[rank] = got
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for p in procs:
+            p.join(timeout=DIST_TIMEOUT_S)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [p.exitcode for p in procs if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"3j: spawned ranks exited with {bad}")
+    for r in range(1, width):
+        for K, _ in DIST_BUILDS:
+            if res[r][K]["digest"] != res[0][K]["digest"]:
+                raise AssertionError(f"3j width {width} k={K}: rank {r}'s "
+                                     f"graph differs from rank 0's")
+    return [res[r] for r in range(width)]
+
+
+def native_parse_timing():
+    """``native.fasta_encode_native`` against the port's read path
+    (``seqio/fasta.py`` ``read_and_encode``) on 3g's reads as FASTA; the
+    codes must agree."""
+    from metagraph_tpu_torch.kmer.alphabets import DNA
+    from metagraph_tpu_torch.native import fasta_encode_native
+    from metagraph_tpu_torch.seqio.fasta import read_and_encode
+    _, reads = clean_reads(np.random.default_rng(SEED + 30), N_CODES)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reads.fa")
+        write_fasta(path, [LETTERS[r].tobytes() for r in reads], "r")
+        t0 = time.time()
+        with open(path, "rb") as f:
+            got = fasta_encode_native(f.read(), DNA.encode_table())
+        t_native = time.time() - t0
+        if got is None:
+            raise AssertionError("3j: the native codec did not build")
+        t0 = time.time()
+        want = read_and_encode(path, DNA)
+        t_py = time.time() - t0
+    if not np.array_equal(got[0], want):
+        raise AssertionError("3j: the native codes differ from "
+                             "seqio/fasta.py's")
+    log(f"3j native codec: {len(reads)} reads ({len(want)} codes): "
+        f"fasta_encode_native {t_native:.3f} s (file read included), "
+        f"seqio/fasta.py read_and_encode {t_py:.3f} s "
+        f"({t_py / t_native:.1f}x); codes equal")
+    return t_native, t_py
+
+
+def dist_runs():
+    """(width, backend) of 3j: width 1 over NCCL, width 4 over gloo on
+    the one card, and width 4 over NCCL where there are four cards."""
+    import torch
+    runs = [(1, "nccl"), (DIST_WIDTH, "gloo")]
+    if torch.cuda.device_count() >= DIST_WIDTH:
+        runs.append((DIST_WIDTH, "nccl"))
+    return runs
+
+
+def phase_distributed(ref, runs=None, native=True):
+    """3j. build_boss_distributed_full on 3a's 2^25 codes at k = 31
+    canonical and k = 20 basic, at each (width, backend) of ``runs``
+    (``dist_runs()``). Rank 0's warm graphs equal 3a's array for array
+    (on the card), the other ranks' digests equal rank 0's; partition,
+    merge and sort launch on every rank. Then (``native``) the native
+    codec's parse against the port's. Returns the launch counts summed
+    over every rank."""
+    t_phase = time.time()
+    text = dist_text()
+    total = {k: 0 for k in read_launches()}
+    for width, backend in runs or dist_runs():
+        ranks = dist_width(width, backend, text, ref)
+        for K, mode in DIST_BUILDS:
+            per = [r[K] for r in ranks]
+            for r, x in enumerate(per):
+                check_launched(x["launches"], BUILD_KERNELS,
+                               f"3j width {width} {backend} rank {r}")
+                for k in total:
+                    total[k] += x["launches"][k]
+            edges = np.array(per[0]["shard_rows"], np.float64)
+            routes = {name: sum(x["routes"][name][2] for x in per)
+                      for name in per[0]["routes"]}
+            secs = {name: max(x["routes"][name][3] for x in per)
+                    for name in per[0]["routes"]}
+            rows = {name: np.array([x["routes"][name][1] for x in per],
+                                   np.float64)
+                    for name in ("collect", "rc", "sink", "src_ref",
+                                 "src_query") if name in per[0]["routes"]}
+            warm = max(x["warm"] for x in per)
+            log(f"3j width {width} ({per[0]['transport']}) k={K} {mode}: "
+                f"{per[0]['edges']} edges = 3a's; warm "
+                f"{warm:.3f} s (rank 0 "
+                f"{per[0]['warm']:.3f}), cold {per[0]['cold']:.3f} s "
+                f"(3a in-core warm {ref[K, 'warm']:.3f} s)")
+            log(f"3j width {width} {backend} k={K}: edges per rank "
+                f"{[int(e) for e in edges]} (max / mean "
+                f"{edges.max() / edges.mean():.3f}); peak GiB per rank "
+                f"{[round(x['peak'] / 2**30, 3) for x in per]}")
+            log(f"3j width {width} {backend} k={K}: bytes received per route "
+                f"(all ranks) {routes}; slowest rank's host s per route "
+                f"{ {n: round(s, 3) for n, s in secs.items()} } (sum "
+                f"{sum(secs.values()):.3f} s of the {warm:.3f} s wall); "
+                f"received rows per rank, max / mean: "
+                f"{ {n: round(float(r.max() / r.mean()), 3) for n, r in rows.items()} }")
+            launches = [{k: x["launches"][k] for k in BUILD_KERNELS}
+                        for x in per]
+            log(f"3j width {width} {backend} k={K}: launches per rank "
+                f"{launches}")
+    if native:
+        native_parse_timing()
+    log(f"3j: {time.time() - t_phase:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the alignment path
 # ---------------------------------------------------------------------------
 
@@ -3975,6 +4233,7 @@ def main():
     alph_launches, alph_align = timed(phase_alphabets, dev)
     graph_launches = timed(phase_graph, dev)
     scale_launches = timed(phase_scaleout, dev, main_results)
+    dist_launches = timed(phase_distributed, main_results)
     rd_launches = main_results.pop("3i row_diff")["launches"]
     del main_results
     timed(phase_cli, "cuda")
@@ -3992,14 +4251,14 @@ def main():
         err, ms, plain, lib_ms, (bound_ms, bound_by) = summary[kname]
         # the main path's runs, phase 3f's (its builds and its
         # score-only Protein alignment), phase 3g's, 3h's, 3i's, the
-        # k = 65 build's and the server's
+        # k = 65 build's, the server's and 3j's (every rank's)
         n_launch = (launches[kname] + (alph_align if kname == "pallas_dp"
                                        else alph_launches)[kname]
                     + graph_launches[kname]
                     + surface["graph launches"][kname]
                     + surface["anno launches"][kname]
                     + scale_launches[kname] + rd_launches[kname]
-                    + wide_launches[kname]
+                    + wide_launches[kname] + dist_launches[kname]
                     + surface["serve launches"][kname])
         kernels.append({"name": kname, "route": "cuda", "source": src,
                         "replaces": rep, "launches": n_launch,

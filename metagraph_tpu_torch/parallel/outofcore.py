@@ -158,42 +158,47 @@ class _Keys:
 # device stages (per shard)
 # ---------------------------------------------------------------------------
 
-def _lanes_min1(x: np.ndarray, dev) -> torch.Tensor:
-    """Host lanes on the device, one PAD column when empty (the kernels'
-    operands are never empty)."""
-    t = packed.lanes_from_numpy(x, dev)
-    return t if x.shape[1] else packed.full_pad(1, x.shape[0], dev)
+def _min1(t: torch.Tensor) -> torch.Tensor:
+    """Device lanes, one PAD column when empty (the kernels' operands are
+    never empty)."""
+    return t if t.shape[1] else packed.full_pad(1, t.shape[0], t.device)
 
 
 def _sink_join(keys: torch.Tensor, q_nodes: torch.Tensor, B: int
-               ) -> np.ndarray:
-    """The dummy sink edges of a shard: its routed sink queries (node keys
-    of the real edges' successors) that match none of its real source
-    node keys (sorted ``keys``), deduplicated; returns the host lanes."""
-    q_s, _ = pmerge.sort_packed(q_nodes)
-    vals, is_q, present, is_pad, run_first = bc._merge_membership(keys, q_s)
+               ) -> torch.Tensor:
+    """The dummy sink edges of a shard, sorted: its routed sink queries
+    (node keys of the real edges' successors) that match none of its real
+    source node keys (sorted ``keys``, which may end in PAD),
+    deduplicated. Either side may be empty."""
+    q_s, _ = pmerge.sort_packed(_min1(q_nodes))
+    vals, is_q, present, is_pad, run_first = bc._merge_membership(
+        _min1(keys), q_s)
     keep = is_q & ~present & ~is_pad & run_first
     nodes, n_out, _ = pmerge.partition_compact(vals, keep, vals.shape[1])
-    return packed.lanes_to_numpy(packed.shift_left(nodes[:, :int(n_out)], B))
+    return packed.shift_left(nodes[:, :int(n_out)], B)
 
 
-def _src_join(ref_tk: torch.Tensor, q_tk: torch.Tensor) -> np.ndarray:
+def _src_join(ref_tk: torch.Tensor, q_tk: torch.Tensor) -> torch.Tensor:
     """Per query target key (in its input order): True when no real edge
-    of the shard has it, i.e. the origin node needs a dummy source."""
-    ref_s, _ = pmerge.sort_packed(ref_tk)
-    pos = torch.arange(q_tk.shape[1], dtype=torch.int32, device=q_tk.device)
+    of the shard has it, i.e. the origin node needs a dummy source. Either
+    side may be empty."""
+    n_q = q_tk.shape[1]
+    if n_q == 0:
+        return torch.zeros((0,), dtype=torch.bool, device=q_tk.device)
+    ref_s, _ = pmerge.sort_packed(_min1(ref_tk))
+    pos = torch.arange(n_q, dtype=torch.int32, device=q_tk.device)
     q_s, (pos_s,) = pmerge.sort_packed(q_tk, pos)
     _, is_q, present, _, _ = bc._merge_membership(ref_s, q_s)
-    verdict = torch.empty((q_tk.shape[1],), dtype=torch.bool,
-                          device=q_tk.device)
+    verdict = torch.empty((n_q,), dtype=torch.bool, device=q_tk.device)
     verdict[pos_s.long()] = ~present[is_q]       # queries keep their order
-    return verdict.cpu().numpy()
+    return verdict
 
 
 def _emit_shard(real, counts, n_real, dummy_parts, K, B, alph_size,
                 max_count, with_sentinel):
-    """One shard's merge and emit; returns host (W, last, weights, real
-    mask, top-char histogram, kept lanes) of its kept edges."""
+    """One shard's merge and emit; returns device (W, last, weights, real
+    mask, top-char histogram, kept lanes) of its kept edges. ``real`` may
+    be one PAD column (``n_real`` 0)."""
     kept, n_kept, W, last, _, weights = bc._merge_emit_body(
         real, counts, n_real, dummy_parts, K, B, alph_size, max_count,
         skip_redundant_sinks=True, with_sentinel=with_sentinel)
@@ -202,9 +207,7 @@ def _emit_shard(real, counts, n_real, dummy_parts, K, B, alph_size,
     hist = torch.bincount(packing.top_char(kv, K, B).long(),
                           minlength=alph_size)[:alph_size]
     real_mask = (packing.label(kv, B) != 0) & (packing.first_char(kv, B) != 0)
-    return (W[:nk].cpu().numpy(), last[:nk].cpu().numpy(),
-            weights[:nk].cpu().numpy(), real_mask.cpu().numpy(),
-            hist.cpu().numpy().astype(np.int64), kv)
+    return W[:nk], last[:nk], weights[:nk], real_mask, hist, kv
 
 
 # ---------------------------------------------------------------------------
@@ -393,8 +396,10 @@ def build_boss_out_of_core(seqs, k: int, alphabet: Alphabet = DNA,
             qs = _cat(sinkq[s], L)
             sinkq[s] = None
             if qs.shape[1]:
-                keys = packing.node_key(_lanes_min1(shard_lanes[s], dev), B)
-                sink_edges[s] = _sink_join(keys, _lanes_min1(qs, dev), B)
+                keys = packing.node_key(
+                    packed.lanes_from_numpy(shard_lanes[s], dev), B)
+                sink_edges[s] = packed.lanes_to_numpy(_sink_join(
+                    keys, packed.lanes_from_numpy(qs, dev), B))
                 del keys
             rt = _cat(reftk[s], L)
             reftk[s] = None
@@ -402,8 +407,9 @@ def build_boss_out_of_core(seqs, k: int, alphabet: Alphabet = DNA,
                 qt = _cat([p for p, _, _ in srcq[s]], L)
                 org = np.concatenate([o for _, o, _ in srcq[s]])
                 qidx = np.concatenate([i for _, _, i in srcq[s]])
-                verd = _src_join(_lanes_min1(rt, dev),
-                                 packed.lanes_from_numpy(qt, dev))
+                verd = _src_join(
+                    packed.lanes_from_numpy(rt, dev),
+                    packed.lanes_from_numpy(qt, dev)).cpu().numpy()
                 for o in np.unique(org):
                     m = org == o
                     verdicts[int(o)].append((qidx[m], verd[m]))
@@ -453,7 +459,7 @@ def build_boss_out_of_core(seqs, k: int, alphabet: Alphabet = DNA,
             dummies = [sink_edges[s], src_edges[s]] + level_edges[s]
             if n_real == 0 and s > 0 and not any(d.shape[1] for d in dummies):
                 continue
-            real_d = _lanes_min1(real, dev)
+            real_d = _min1(packed.lanes_from_numpy(real, dev))
             cnt = torch.zeros((real_d.shape[1],), dtype=torch.int32,
                               device=dev)
             if counts is not None:
@@ -462,11 +468,11 @@ def build_boss_out_of_core(seqs, k: int, alphabet: Alphabet = DNA,
                 real_d, cnt, n_real,
                 [packed.lanes_from_numpy(d, dev) for d in dummies if
                  d.shape[1]], K, B, alphabet.size, max_count, s == 0)
-            W_parts.append(W)
-            last_parts.append(last)
-            w_parts.append(w)
-            valid_parts.append(vreal)
-            hist += h
+            W_parts.append(W.cpu().numpy())
+            last_parts.append(last.cpu().numpy())
+            w_parts.append(w.cpu().numpy())
+            valid_parts.append(vreal.cpu().numpy())
+            hist += h.cpu().numpy()
             if keep_kmer_index:
                 kept_parts.append(packed.lanes_to_numpy(kept))
             del real_d, cnt, kept
