@@ -16,9 +16,9 @@ Phases (each raises on failure; the process exits non-zero):
      kernels at 5 to 8 lanes (the sort of the Protein k = 31 collect's
      lanes, partition and merges at 2^25, the sort's edge cases); past
      8 lanes at 2^25 (sort_packed by lane groups at L = 9, 10 and 16
-     with 0 and 2 payloads, partition_compact one launch a group at
-     L = 9 and 16, merge_sorted's co-rank route at L = 9 and 16 with
-     |B| << |A| and |A| = |B|); and the
+     with 0 and 2 payloads; partition_compact in one launch and
+     merge_sorted by merge-path tiles at L = 9, 12 and 16, the merge
+     with |B| << |A| and |A| = |B|); and the
      DP with BLOSUM62 (sigma = 27) and a 32 x 32 table on both routes;
      prints the median times of the kernel, of its plain version and
      (where one exists) of one PyTorch library call, and its bound.
@@ -550,41 +550,50 @@ def wide_lanes(gen, n, L, dev, pad=0.01):
 
 
 def phase_past_eight_lanes(gen, dev):
-    """The build kernels past their 8 lanes (k > 64 over the 4-bit
-    alphabets, k > 32 over Protein), at 2^25 entries, bit for bit
+    """The build kernels past the sort kernel's 8 lanes (k > 64 over the
+    4-bit alphabets, k > 32 over Protein), at 2^25 entries, bit for bit
     against the plain versions: sort_packed by lane groups at L = 9, 10
-    and 16 with 0 and 2 payloads, partition_compact one launch a group
-    at L = 9 and 16, merge_sorted's co-rank route at L = 9 and 16 with
-    |B| << |A| and |A| = |B|; logs the kernel's, the plain version's
-    and the bound's ms."""
+    and 16 with 0 and 2 payloads; partition_compact (one launch) and
+    merge_sorted (merge-path tiles: a splits launch, then a tile launch)
+    at L = 9, 12 and 16, the merge with |B| << |A| and |A| = |B|; logs
+    the kernel's, the plain version's, the library's and the bound's
+    ms."""
     import torch
     from metagraph_tpu_torch.common import merge
     n = N_CODES
-    for L in (9, 10, 16):
+    for L in (9, 10, 12, 16):
         x = wide_lanes(gen, n, L, dev)
-        for E in (0, 2):
-            err, ms, plain, _, (bms, _) = check_sort(gen, dev, 0, 0, E,
-                                                     time_it=True, x=x)
-            log(f"sort_packed L={L} E={E} N=2^25 (lane groups, 1 % PAD): "
-                f"bit-exact, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-                f"bound {bms:.3f} ms (median of 5)")
+        if L != 12:
+            for E in (0, 2):
+                err, ms, plain, _, (bms, _) = check_sort(
+                    gen, dev, 0, 0, E, time_it=True, x=x)
+                log(f"sort_packed L={L} E={E} N=2^25 (lane groups, 1 % "
+                    f"PAD): bit-exact, kernel {ms:.3f} ms, plain "
+                    f"{plain:.3f} ms, bound {bms:.3f} ms (median of 5)")
         if L != 10:
             res = check_partition(gen, dev, n, L, n, 0.5, E=1, time_it=True)
-            err, ms, plain, lib_ms, (bms, _) = res
-            log(f"partition_compact L={L} N=2^25 keep=0.5 (one launch a "
-                f"lane group): bit-exact, kernel {ms:.3f} ms, plain "
-                f"{plain:.3f} ms, library x[:, keep] {lib_ms:.3f} ms, bound "
-                f"{bms:.3f} ms (median of 5)")
             check_partition(gen, dev, 100003, L, 1000, 0.7, E=2)
+            err, ms, plain, lib_ms, (bms, _) = res
+            log(f"partition_compact L={L} N=2^25 keep=0.5 (one launch): "
+                f"bit-exact, kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+                f"library x[:, keep] {lib_ms:.3f} ms, bound {bms:.3f} ms "
+                f"(median of 5)")
+            one = merge.partition_launches
+            merge.partition_compact(x, x[0] > 0, n)
+            if merge.partition_launches - one != 1:
+                raise AssertionError(f"partition_compact L={L}: "
+                                     f"{merge.partition_launches - one} "
+                                     f"launches for one call")
             a, _ = merge.sort_packed_plain(x)
             for nb, what in ((1 << 12, "|B| << |A|"), (n, "|A| = |B|")):
                 b, _ = merge.sort_packed_plain(
                     wide_lanes(gen, nb, L, dev))
                 err, ms, plain, _, (bms, _) = check_merge(
                     gen, dev, 0, 0, L, time_it=True, a=a, b=b)
-                log(f"merge_sorted L={L} |A|={n} |B|={nb} ({what}, the "
-                    f"co-rank route): bit-exact, kernel {ms:.3f} ms, plain "
-                    f"{plain:.3f} ms, bound {bms:.3f} ms (median of 5)")
+                log(f"merge_sorted L={L} |A|={n} |B|={nb} ({what}, "
+                    f"merge-path tiles): bit-exact, kernel {ms:.3f} ms, "
+                    f"plain {plain:.3f} ms, bound {bms:.3f} ms (median "
+                    f"of 5)")
                 del b
             del a
         del x
@@ -2853,7 +2862,7 @@ def check_align_cuda_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 3a-wide: a build past the kernels' 8 lanes
+# phase 3a-wide: a build past the sort kernel's 8 lanes
 # ---------------------------------------------------------------------------
 
 WIDE_K = 65                     # 65 DNA chars of 4 bits: 9 lanes
@@ -2884,12 +2893,13 @@ def wide_gold(codes, K=WIDE_K):
 
 def phase_wide_build(dev):
     """3a-wide. Phase 3a's 2^25 codes at k = 65, canonical (9 lanes: the
-    sorts and compactions by lane groups, the rc and dummy merges by
-    co-ranking), cold and warm: real edges equal the numpy gold (the
-    distinct forward windows and reverse complements, counted exactly
-    on the host); the three build kernels launched;
-    and the card's build of a 2^18-code prefix equals the CPU's array
-    for array. Returns the warm build's launch counts."""
+    sorts by lane groups, each compaction one launch, the rc and dummy
+    merges by merge-path tiles), cold and warm: real edges equal the
+    numpy gold (the distinct forward windows and reverse complements,
+    counted exactly on the host); the three build kernels launched (the
+    warm build's launches logged); and the card's build of a 2^18-code
+    prefix equals the CPU's array for array. Returns the warm build's
+    launch counts."""
     import torch
     from metagraph_tpu_torch.common import packed
     from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes

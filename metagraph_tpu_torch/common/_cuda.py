@@ -37,11 +37,10 @@ SOURCES = {
                           ctypes.c_uint, _P, _P, _P], _I),
     },
     "merge.cu": {
-        "mg_merge_tile": ([], _I),
+        "mg_merge_tile": ([_I], _I),
+        "mg_merge_max_lanes": ([], _I),
         "mg_merge": ([_P, _LL, _P, _LL, _I, _P, _P, _P, _P, _I, _P, _P, _P,
                       _P, _P], _I),
-        "mg_merge_corank": ([_P, _LL, _P, _LL, _I, _P, _P, _P, _P, _I, _P,
-                             _P, _P, _P], _I),
     },
     "sort.cu": {
         "mg_sort_tile": ([_I], _I),

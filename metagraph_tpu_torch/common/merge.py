@@ -5,16 +5,18 @@ PyTorch counterpart of ``metagraph_tpu/common/merge.py``:
 
   * ``partition_compact`` — stable compaction of kept entries to the
     front (replaces the Pallas ``_partition_call``); hand-written CUDA in
-    ``csrc/partition.cu``, one launch per call (tiles in order, a one-bin
-    decoupled look-back for the kept prefix, the PAD tail written by the
-    dropped entries); plain version ``packed.compact``.
+    ``csrc/partition.cu``, one launch per call for any number of lanes
+    (tiles in order, a one-bin decoupled look-back for the kept prefix,
+    every lane and payload through two shared stages, the PAD tail
+    written by the dropped entries); plain version ``packed.compact``.
   * ``merge_sorted`` — merge of two sorted lane arrays with payloads
     (replaces the Pallas ``_merge_call``); hand-written CUDA in
-    ``csrc/merge.cu``; plain version a stable sort of the concatenation.
-    Both versions are stable with A first on ties, where the TPU's
-    bitonic kernel was not. Up to ``MAX_LANES`` lanes the kernel merges
-    by merge-path tiles; past them by co-ranking (each key's output
-    position is its own index plus its rank in the other side).
+    ``csrc/merge.cu``: merge-path splits, then one block a tile of whole
+    keys in dynamic shared memory, for any number of lanes up to what
+    one tile holds (``merge_lane_limit``; the tile shrinks past 55 lanes
+    on an H100); plain version a stable sort of the concatenation. Both
+    versions are stable with A first on ties, where the TPU's bitonic
+    kernel was not.
   * ``sort_packed`` — full sort of lanes with payloads (replaces the JAX
     ``sort_packed``: leaf sorts, then segmented ``_merge_call`` levels);
     hand-written CUDA in ``csrc/sort.cu``: an LSD radix sort over 8-bit
@@ -27,13 +29,10 @@ PyTorch counterpart of ``metagraph_tpu/common/merge.py``:
     version ``packed.sort``. Both are stable, where the TPU's was not,
     so the two agree bit for bit, payloads included.
 
-The partition and sort kernels take at most ``MAX_LANES`` lanes a
-launch. Wider keys (k > 64 over the 4-bit alphabets, k > 32 over
-Protein) go through the same wrappers in groups of at most
-``MAX_LANES`` lanes: ``partition_compact`` launches once a group with the
-same keep mask, and ``sort_packed`` runs an LSD sort over the groups,
-least significant first, with the permutation as its one payload
-(``lex_order``).
+The sort kernel takes at most ``MAX_LANES`` lanes a launch. Wider keys
+(k > 64 over the 4-bit alphabets, k > 32 over Protein) sort by an LSD
+sort over groups of at most ``MAX_LANES`` lanes, least significant
+first, with the permutation as its one payload (``lex_order``).
 
 Each wrapper dispatches on the device of the tensor it is given and on
 nothing else: a CPU tensor takes the plain version, a CUDA tensor
@@ -58,7 +57,7 @@ merge_launches = 0
 sort_launches = 0
 sort_digit_passes = 0
 
-# the most lanes one partition, sort or merge-path launch takes
+# the most lanes one sort launch takes
 MAX_LANES = 8
 _MAX_EXTRAS = 2
 
@@ -143,35 +142,14 @@ def partition_compact(x: torch.Tensor, keep: torch.Tensor, capacity: int,
     """Stable compaction: returns (lanes (L, capacity), TRUE count as a
     0-d int32 tensor, extras). Kept entries first in their original
     order; PAD / ``extra_fill`` past the count; entries past
-    ``capacity`` dropped (the count still counts them). More than
-    ``MAX_LANES`` lanes take one launch a lane group."""
-    if x.shape[0] > MAX_LANES:
-        return _partition_wide(x, keep, capacity, extras, extra_fill)
+    ``capacity`` dropped (the count still counts them). Any number of
+    lanes; one launch on the card."""
     if x.device.type == "cpu":
         return partition_compact_plain(x, keep, capacity, *extras,
                                        extra_fill=extra_fill)
     if x.device.type != "cuda":
         raise ValueError(f"partition_compact: no kernel for {x.device}")
     return _partition_cuda(x, keep, capacity, extras, extra_fill)
-
-
-def _partition_wide(x, keep, capacity, extras, extra_fill):
-    """One compaction a lane group, all with the same keep mask and
-    capacity; the payloads ride with the first group. The groups' counts
-    must agree, which is asserted on the device (no host sync)."""
-    outs, counts, eouts = [], [], ()
-    for i, (lo, hi) in enumerate(_lane_groups(x.shape[0])):
-        out, count, e = partition_compact(
-            x[lo:hi], keep, capacity, *(extras if i == 0 else ()),
-            extra_fill=extra_fill)
-        outs.append(out)
-        counts.append(count)
-        eouts = eouts or e
-    counts = torch.stack(counts)
-    torch._assert_async(torch.all(counts == counts[0]),
-                        "partition_compact: lane groups kept different "
-                        "counts")
-    return torch.cat(outs), counts[0], eouts
 
 
 # ---------------------------------------------------------------------------
@@ -188,13 +166,17 @@ def merge_sorted_plain(a: torch.Tensor, b: torch.Tensor,
     return packed.sort(lanes, *extras)
 
 
+def merge_lane_limit(device) -> int:
+    """The widest keys (in lanes) the merge kernel takes on ``device``,
+    a CUDA device: what the smallest tile's shared memory holds."""
+    with torch.cuda.device(device):
+        return _cuda.lib().mg_merge_max_lanes()
+
+
 def _merge_cuda(a, b, a_extras, b_extras):
-    """Up to MAX_LANES lanes the merge-path route (splits, then one block
-    a tile of whole keys in shared memory); past them the co-rank route
-    (one thread a key: a binary search of the other side over all lanes,
-    then a scatter)."""
+    """Merge-path splits, then one block a tile of whole keys in shared
+    memory (the tile sized by the lane count)."""
     global merge_launches
-    corank = a.shape[0] > MAX_LANES
     _check_cuda_args("merge_sorted", [a, b],
                      list(a_extras) + list(b_extras), len(a_extras))
     L, na = a.shape
@@ -206,25 +188,19 @@ def _merge_cuda(a, b, a_extras, b_extras):
             raise TypeError("merge_sorted: payload i of A and B must share "
                             "a dtype and match their key counts")
     dev = a.device
+    lib = _cuda.lib()
+    with torch.cuda.device(dev):
+        tile = lib.mg_merge_tile(L)
+    if tile <= 0:
+        raise ValueError(f"merge_sorted: {L} lanes; the merge kernel takes "
+                         f"at most {merge_lane_limit(dev)} on {dev}")
     a, b = a.contiguous(), b.contiguous()
     a_extras = [e.contiguous() for e in a_extras]
     b_extras = [e.contiguous() for e in b_extras]
-    lib = _cuda.lib()
     ntot = na + nb
     out = torch.empty((L, ntot), dtype=packed.LANE_DTYPE, device=dev)
     eouts = [torch.empty((ntot,), dtype=e.dtype, device=dev)
              for e in a_extras]
-    if corank:
-        with torch.cuda.device(dev):
-            status = lib.mg_merge_corank(
-                a.data_ptr(), na, b.data_ptr(), nb, L, *_pad_ptrs(a_extras),
-                *_pad_ptrs(b_extras), len(a_extras), out.data_ptr(),
-                *_pad_ptrs(eouts),
-                torch.cuda.current_stream(dev).cuda_stream)
-        _cuda.check(status, "merge_sorted (co-rank)")
-        merge_launches += 1
-        return out, tuple(eouts)
-    tile = lib.mg_merge_tile()
     splits = torch.empty((-(-ntot // tile) + 1,), dtype=torch.int64,
                          device=dev)
     with torch.cuda.device(dev):

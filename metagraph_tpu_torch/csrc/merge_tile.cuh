@@ -1,20 +1,15 @@
-// The merge step shared by merge.cu (one merge of two sorted arrays) and
-// sort.cu (the merge levels of the full sort): the lexicographic lane
-// compare, the merge-path diagonal search and the shared-memory merge of
-// one output tile. Keys are L uint32 lanes, lane 0 most significant;
+// The merge step of merge.cu: the lexicographic lane compare, the
+// merge-path diagonal search and the shared-memory merge of one output
+// tile. Keys are L uint32 lanes, lane 0 most significant, any L >= 1;
 // PAD (all ones) is the largest key. Ties take A, so a merge of an
 // earlier run A with a later run B is stable.
 
 #pragma once
 
 #include <cstdint>
+#include <cuda_pipeline.h>
 
 namespace mg {
-
-constexpr int kMergeThreads = 256;
-constexpr int kMergeItems = 4;
-constexpr int kMergeTile = kMergeThreads * kMergeItems;
-constexpr int kMaxLanes = 8;
 
 // a[:, ia] <= b[:, ib] over L lanes (lane stride sa / sb)
 __device__ __forceinline__ bool le_lanes(const uint32_t* a, long long sa,
@@ -47,67 +42,86 @@ __device__ __forceinline__ long long merge_path(
   return lo;
 }
 
-// One block of kMergeThreads writes out[:, d0 : d0 + na_t + nb_t] (lane
-// stride so) as the merge of A = a[:, a0 : a0 + na_t] and
-// B = b[:, b0 : b0 + nb_t], with 0-2 payloads indexed like their keys.
-// A tile fed by one side only is a coalesced copy. Otherwise the block
-// stages both windows' keys in smem ((L + 1) * kMergeTile words), each
-// thread finds its sub-diagonal by binary search and merges kMergeItems
-// outputs, recording each one's source slot; then the block writes lanes
-// and payloads back coalesced. Every thread of the block must call it.
+// Items a thread at most: a tile is blockDim.x * items outputs,
+// items <= kMaxItems.
+constexpr int kMaxItems = 4;
+
+// One block of blockDim.x threads writes out[:, d0 : d0 + na_t + nb_t]
+// (lane stride so, at most `tile` = blockDim.x * items outputs) as the
+// merge of A = a[:, a0 : a0 + na_t] and B = b[:, b0 : b0 + nb_t], with
+// 0-2 payloads indexed like their keys. The block stages both windows'
+// keys in dynamic shared memory ((L + 1) * tile words: L lanes of keys,
+// then a source slot per output) by asynchronous copies (cp.async: a
+// thread issues all its L * items copies before it waits, and holds no
+// register for them); each thread finds its sub-diagonal by binary
+// search and merges `items` outputs, recording each one's source slot
+// (a tile fed by one side only skips the search: its slots are in
+// order); then the block writes lanes and payloads back coalesced, a
+// thread's payload reads all issued before their stores. Every thread
+// of the block must call it.
 __device__ __forceinline__ void merge_tile(
     const uint32_t* __restrict__ a, long long sa, long long a0, int na_t,
     const uint32_t* __restrict__ b, long long sb, long long b0, int nb_t,
-    int L, const uint32_t* __restrict__ ea0, const uint32_t* __restrict__ ea1,
-    const uint32_t* __restrict__ eb0, const uint32_t* __restrict__ eb1,
-    int n_extra, uint32_t* __restrict__ out, long long so, long long d0,
-    uint32_t* __restrict__ oe0, uint32_t* __restrict__ oe1, uint32_t* smem) {
+    int L, int tile, int items, const uint32_t* __restrict__ ea0,
+    const uint32_t* __restrict__ ea1, const uint32_t* __restrict__ eb0,
+    const uint32_t* __restrict__ eb1, int n_extra,
+    uint32_t* __restrict__ out, long long so, long long d0,
+    uint32_t* __restrict__ oe0, uint32_t* __restrict__ oe1,
+    uint32_t* smem) {
   const int cnt = na_t + nb_t;
-  if (nb_t == 0 || na_t == 0) {               // one-sided tile: a copy
-    const bool from_a = nb_t == 0;
-    const uint32_t* s = from_a ? a : b;
-    const long long ss = from_a ? sa : sb;
-    const long long s0 = from_a ? a0 : b0;
-    for (int p = threadIdx.x; p < cnt; p += kMergeThreads) {
-      for (int j = 0; j < L; ++j) out[j * so + d0 + p] = s[j * ss + s0 + p];
-      if (n_extra > 0) oe0[d0 + p] = (from_a ? ea0 : eb0)[s0 + p];
-      if (n_extra > 1) oe1[d0 + p] = (from_a ? ea1 : eb1)[s0 + p];
-    }
-    return;
-  }
+  const int threads = blockDim.x;
+  const bool one_sided = nb_t == 0 || na_t == 0;
 
   // stage the windows: slots [0, na_t) hold A, [na_t, cnt) hold B
   uint32_t* keys = smem;
-  int* src = (int*)(smem + L * kMergeTile);
-  for (int p = threadIdx.x; p < cnt; p += kMergeThreads) {
-    for (int j = 0; j < L; ++j) {
-      keys[j * kMergeTile + p] =
-          p < na_t ? a[j * sa + a0 + p] : b[j * sb + b0 + (p - na_t)];
+  int* src = (int*)(smem + (size_t)L * tile);
+  for (int j = 0; j < L; ++j) {
+    for (int p = threadIdx.x; p < cnt; p += threads) {
+      __pipeline_memcpy_async(
+          keys + j * tile + p,
+          p < na_t ? a + j * sa + a0 + p : b + j * sb + b0 + (p - na_t), 4);
     }
   }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
 
-  const int diag = min((int)threadIdx.x * kMergeItems, cnt);
-  const int lo = (int)merge_path(keys, kMergeTile, 0, na_t, keys, kMergeTile,
-                                 na_t, nb_t, diag, L);
-  int ai = lo;
-  int bi = diag - lo;
-  for (int k = 0; k < kMergeItems && diag + k < cnt; ++k) {
-    const bool take_a =
-        bi >= nb_t || (ai < na_t && le_lanes(keys, kMergeTile, ai, keys,
-                                             kMergeTile, na_t + bi, L));
-    src[diag + k] = take_a ? ai++ : na_t + bi++;
-  }
-  __syncthreads();
-
-  for (int p = threadIdx.x; p < cnt; p += kMergeThreads) {
-    const int s = src[p];
-    for (int j = 0; j < L; ++j) out[j * so + d0 + p] = keys[j * kMergeTile + s];
-    if (n_extra > 0) {
-      oe0[d0 + p] = s < na_t ? ea0[a0 + s] : eb0[b0 + (s - na_t)];
+  if (!one_sided) {
+    const int diag = min((int)threadIdx.x * items, cnt);
+    const int lo = (int)merge_path(keys, tile, 0, na_t, keys, tile, na_t,
+                                   nb_t, diag, L);
+    int ai = lo;
+    int bi = diag - lo;
+    for (int k = 0; k < items && diag + k < cnt; ++k) {
+      const bool take_a =
+          bi >= nb_t ||
+          (ai < na_t && le_lanes(keys, tile, ai, keys, tile, na_t + bi, L));
+      src[diag + k] = take_a ? ai++ : na_t + bi++;
     }
-    if (n_extra > 1) {
-      oe1[d0 + p] = s < na_t ? ea1[a0 + s] : eb1[b0 + (s - na_t)];
+    __syncthreads();
+  }
+
+  for (int p = threadIdx.x; p < cnt; p += threads) {
+    const int s = one_sided ? p : src[p];
+    for (int j = 0; j < L; ++j) out[j * so + d0 + p] = keys[j * tile + s];
+  }
+  for (int e = 0; e < n_extra; ++e) {
+    const uint32_t* xa = e == 0 ? ea0 : ea1;
+    const uint32_t* xb = e == 0 ? eb0 : eb1;
+    uint32_t* oe = e == 0 ? oe0 : oe1;
+    uint32_t v[kMaxItems];
+#pragma unroll
+    for (int i = 0; i < kMaxItems; ++i) {
+      const int p = threadIdx.x + i * threads;
+      if (i < items && p < cnt) {
+        const int s = one_sided ? p : src[p];
+        v[i] = s < na_t ? xa[a0 + s] : xb[b0 + (s - na_t)];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxItems; ++i) {
+      const int p = threadIdx.x + i * threads;
+      if (i < items && p < cnt) oe[d0 + p] = v[i];
     }
   }
 }

@@ -3,7 +3,7 @@
 PyTorch counterpart of ``metagraph_tpu/graph/boss_construct.py``, for
 the single-shard build over every alphabet (modes ``basic``,
 ``canonical`` and ``primary``, with or without k-mer counts, from
-sequences or from pre-counted k-mers; at most 8 lanes a k-mer):
+sequences or from pre-counted k-mers; any number of lanes a k-mer):
 
   collect     upload the uint8 codes; pack every window (DNA in the
               2-bit domain, the other alphabets at their own B bits,

@@ -1,10 +1,11 @@
 """Host-side FASTA/FastQ reading and writing.
 
 Copied from ``metagraph_tpu/seqio/fasta.py`` (that package imports JAX
-at its root, so the port cannot import it). The parser is pure Python;
-the JAX package's C codec (``native/fasta_codec.c``) is not ported yet,
-so ``read_and_encode`` parses in Python and encodes with numpy — the
-same codes the codec gives. ``ExtendedFastaWriter`` writes contigs with
+at its root, so the port cannot import it). The parser is pure Python:
+``read_and_encode`` parses in Python and encodes with numpy, the same
+codes the C codec gives. The codec is ported (``native/``), but this
+module does not call it, where the JAX package's ``read_and_encode``
+does for a single file. ``ExtendedFastaWriter`` writes contigs with
 a per-k-mer count sidecar (``<base>.kmer_counts.gz``, one line of
 space-separated counts per record) and ``iter_weighted_records`` reads
 them back, in the JAX package's format.

@@ -142,7 +142,8 @@ def test_kernels_count_launches(dev):
 
 def test_kernels_reject_bad_input(dev):
     """Malformed operands raise before a launch (9 lanes and more are
-    taken now: lane groups and the co-rank route)."""
+    taken: one partition launch, merge-path tiles sized by the lanes;
+    past the widest merge tile the merge raises, naming the limit)."""
     keep = torch.ones(10, dtype=torch.bool, device=dev)
     x = packed.full_pad(10, 0, dev)                     # no lanes
     with pytest.raises(ValueError):
@@ -154,6 +155,16 @@ def test_kernels_reject_bad_input(dev):
         merge.merge_sorted(wide, packed.full_pad(10, 10, dev))
     with pytest.raises(ValueError):                     # three payloads
         merge.partition_compact(wide, keep, 10, *[keep.int()] * 3)
+    limit = merge.merge_lane_limit(dev)
+    assert limit >= 64
+    widest = packed.full_pad(10, limit, dev)
+    _same(merge.merge_sorted(widest, widest)[:1],
+          merge.merge_sorted_plain(widest, widest)[:1])
+    too_wide = packed.full_pad(10, limit + 1, dev)
+    m0 = merge.merge_launches
+    with pytest.raises(ValueError, match=f"at most {limit}"):
+        merge.merge_sorted(too_wide, too_wide)
+    assert merge.merge_launches == m0
 
 
 def _keys(rng, n, L, hi, dev):
@@ -934,11 +945,12 @@ def test_row_diff_staged_cuda_equals_cpu(dev, tmp_path, int_form):
         assert np.array_equal(got[key], want[key]), key
 
 
-@pytest.mark.parametrize("L", [9, 10, 16])
+@pytest.mark.parametrize("L", [9, 10, 12, 16, 64])
 def test_past_eight_lanes_match_plain(dev, L):
-    """Past the kernels' 8 lanes: sort_packed by lane groups (0 and 2
-    payloads), partition_compact one launch a group (one count), and the
-    merge's co-rank route (|B| << |A| and |A| = |B|, ties and PAD)."""
+    """Past the sort kernel's 8 lanes: sort_packed by lane groups (0 and
+    2 payloads), partition_compact in one launch (one count), and the
+    merge's merge-path tiles (|B| << |A| and |A| = |B|, ties and PAD);
+    L = 12 needs the shared-memory opt-in, L = 64 a smaller tile."""
     rng = np.random.default_rng(L)
     n = 50_003
     lanes = rng.integers(0, 1 << 32, (L, n), dtype=np.uint64).astype(
@@ -970,8 +982,47 @@ def test_past_eight_lanes_match_plain(dev, L):
         wm = merge.merge_sorted_plain(a, b, (ea,), (eb,))
         _same([gm[0], *gm[1]], [wm[0], *wm[1]])
     assert merge.sort_launches - s0 >= 2 * ((L + 7) // 8)
-    assert merge.partition_launches - p0 == 2 * ((L + 7) // 8)
+    assert merge.partition_launches - p0 == 2
     assert merge.merge_launches - m0 == 2
+
+
+@pytest.mark.parametrize("L", [12, 64])
+def test_past_eight_lanes_edge_cases(dev, L):
+    """The one-launch partition and the merge-path tiles past 8 lanes at
+    their edges, bit-exact against the plain versions: capacity below
+    the count and above N, nothing kept, an empty input; an empty side,
+    all-PAD operands, heavy duplicates across both sides (ties to A)."""
+    rng = np.random.default_rng(100 + L)
+    n = 20_011
+    xs = packed.lanes_from_numpy(
+        rng.integers(0, 1 << 32, (L, n), dtype=np.uint64).astype(np.uint32),
+        dev)
+    ex = [torch.arange(n, dtype=torch.int32, device=dev)]
+    for cap, frac, m in ((500, 0.6, n), (n + 4099, 0.3, n), (n, 0.0, n),
+                         (64, 0.5, 0)):
+        keep = torch.from_numpy(rng.random(m) < frac).to(dev)
+        g = merge.partition_compact(xs[:, :m], keep, cap,
+                                    *[e[:m] for e in ex], extra_fill=9)
+        w = merge.partition_compact_plain(xs[:, :m], keep, cap,
+                                          *[e[:m] for e in ex], extra_fill=9)
+        assert int(g[1]) == int(w[1])
+        _same([g[0], *g[2]], [w[0], *w[2]])
+    dup = rng.integers(0, 5, (L, n)).astype(np.uint32)   # few keys
+    dup[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+    a, (ea,) = merge.sort_packed_plain(
+        packed.lanes_from_numpy(dup[:, :12_000], dev), ex[0][:12_000])
+    b, (eb,) = merge.sort_packed_plain(
+        packed.lanes_from_numpy(dup[:, 12_000:], dev), ex[0][12_000:])
+    empty = packed.full_pad(0, L, dev)
+    none = torch.empty(0, dtype=torch.int32, device=dev)
+    pad = packed.full_pad(7000, L, dev)
+    for (x, ex_x), (y, ex_y) in (((a, ea), (b, eb)), ((empty, none), (b, eb)),
+                                 ((a, ea), (empty, none)),
+                                 ((pad, ex[0][:7000]), (pad, ex[0][:7000])),
+                                 ((empty, none), (empty, none))):
+        got, (gp,) = merge.merge_sorted(x, y, (ex_x,), (ex_y,))
+        want, (wp,) = merge.merge_sorted_plain(x, y, (ex_x,), (ex_y,))
+        _same([got, gp], [want, wp])
 
 
 @pytest.mark.parametrize("name,mode,k", [("DNA", "canonical", 65),

@@ -6,8 +6,9 @@ them (``interpret=True, force_pallas=True, chunk=1024``) and the JAX
 fallbacks (``packed.compact``, ``_merge_fallback``). Keys must match
 exactly; payloads exactly against the stable fallback, and as multisets
 within equal-key runs against the unstable interpret-mode merge. Past 8
-lanes: the sort's and the partition's lane groups against the plain
-versions, and the merge's co-rank route, emulated in numpy.
+lanes: the sort's lane groups against the plain versions, the partition
+against the JAX package's, and the merge kernel's tiled merge path,
+emulated in numpy at tiles of a few keys.
 """
 
 import jax.numpy as jnp
@@ -216,12 +217,16 @@ def test_sort_packed_lane_groups(L, E):
 
 @pytest.mark.parametrize("L", [9, 16])
 def test_partition_lane_groups(L):
-    """Past 8 lanes partition_compact compacts each lane group with the
-    same keep mask; payloads ride with the first; one count."""
+    """Past 8 lanes partition_compact compacts every lane and both
+    payloads at once (one launch on the card): the JAX package's
+    partition_compact (its CPU fallback) and the plain version, at a
+    capacity equal to, below and above the count of entries."""
     rng = np.random.default_rng(L)
     n = 2500
-    x = T(_wide_keys(rng, L, n, dup=False))
-    keep = torch.from_numpy(rng.random(n) < 0.4)
+    lanes = _wide_keys(rng, L, n, dup=False)
+    x = T(lanes)
+    keep_np = rng.random(n) < 0.4
+    keep = torch.from_numpy(keep_np)
     extras = [torch.arange(n, dtype=torch.int32),
               torch.from_numpy(rng.integers(0, 99, n).astype(np.int32))]
     for cap in (n, 600, n + 77):
@@ -232,47 +237,98 @@ def test_partition_lane_groups(L):
         assert torch.equal(got, want)
         for g, w in zip(ge, we):
             assert torch.equal(g, w)
+        jl, jcount, je = jmerge.partition_compact(
+            jnp.asarray(lanes), jnp.asarray(keep_np), cap,
+            *(jnp.asarray(e.numpy()) for e in extras), extra_fill=-5)
+        assert int(jcount) == int(count)
+        np.testing.assert_array_equal(tpk.lanes_to_numpy(got),
+                                      np.asarray(jl))
+        for g, j in zip(ge, je):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(j))
 
 
-def corank_merge(a: np.ndarray, b: np.ndarray, ea, eb):
-    """The co-rank route of csrc/merge.cu in numpy: each key of A goes to
-    its index plus the count of B's keys below it (lower bound), each key
-    of B to its index plus the count of A's keys at or below it (upper
-    bound)."""
-    import bisect
-    ka = [tuple(c) for c in a.T.tolist()]
-    kb = [tuple(c) for c in b.T.tolist()]
-    out = np.zeros((a.shape[0], len(ka) + len(kb)), np.uint32)
-    eo = np.zeros(len(ka) + len(kb), np.int64)
-    taken = np.zeros(len(ka) + len(kb), bool)
-    for i, key in enumerate(ka):
-        pos = i + bisect.bisect_left(kb, key)
-        out[:, pos], eo[pos], taken[pos] = a[:, i], ea[i], True
-    for j, key in enumerate(kb):
-        pos = j + bisect.bisect_right(ka, key)
-        assert not taken[pos]
-        out[:, pos], eo[pos], taken[pos] = b[:, j], eb[j], True
-    assert taken.all()
+def _le(a, i, b, j):
+    """Key a[:, i] <= key b[:, j], lexicographically (lane 0 first)."""
+    return tuple(a[:, i].tolist()) <= tuple(b[:, j].tolist())
+
+
+def _diagonal(a, a0, na, b, b0, nb, d):
+    """How many of the first d outputs of merge(a[:, a0:a0+na],
+    b[:, b0:b0+nb]) come from A: the merge-path binary search, ties to
+    A (merge_tile.cuh merge_path)."""
+    lo, hi = max(0, d - nb), min(d, na)
+    while lo < hi:
+        m = (lo + hi) // 2
+        if _le(a, a0 + m, b, b0 + d - m - 1):
+            lo = m + 1
+        else:
+            hi = m
+    return lo
+
+
+def tiled_merge(a: np.ndarray, b: np.ndarray, ea, eb, tile: int,
+                items: int):
+    """The merge kernel of csrc/merge.cu in numpy: splits at every tile
+    boundary by the diagonal search over the whole arrays, then each
+    tile's merge as one block runs it: a tile fed by one side is a copy;
+    otherwise each of its tile / items threads finds its sub-diagonal in
+    the tile's windows and takes ``items`` outputs, A first on ties."""
+    na, nb = a.shape[1], b.shape[1]
+    ntot = na + nb
+    g = -(-ntot // tile)
+    splits = [_diagonal(a, 0, na, b, 0, nb, min(t * tile, ntot))
+              for t in range(g + 1)]
+    out = np.zeros((a.shape[0], ntot), np.uint32)
+    eo = np.zeros(ntot, np.int64)
+    for t in range(g):
+        d0, d1 = t * tile, min((t + 1) * tile, ntot)
+        a0, na_t = splits[t], splits[t + 1] - splits[t]
+        b0, nb_t = d0 - a0, d1 - d0 - na_t
+        # (side, index) of each output of the tile
+        if nb_t == 0 or na_t == 0:
+            src = ([(0, a0 + p) for p in range(na_t)]
+                   + [(1, b0 + p) for p in range(nb_t)])
+        else:
+            src = [None] * (d1 - d0)
+            for th in range(tile // items):
+                diag = min(th * items, d1 - d0)
+                ai = _diagonal(a, a0, na_t, b, b0, nb_t, diag)
+                bi = diag - ai
+                for k in range(min(items, d1 - d0 - diag)):
+                    take_a = bi >= nb_t or (
+                        ai < na_t and _le(a, a0 + ai, b, b0 + bi))
+                    src[diag + k] = (0, a0 + ai) if take_a else (1, b0 + bi)
+                    ai, bi = (ai + 1, bi) if take_a else (ai, bi + 1)
+        for p, (side, i) in enumerate(src):
+            out[:, d0 + p] = (a, b)[side][:, i]
+            eo[d0 + p] = (ea, eb)[side][i]
     return out, eo
 
 
 @pytest.mark.parametrize("L,na,nb", [(9, 3000, 40), (9, 1500, 1500),
-                                     (16, 700, 900), (12, 0, 50)])
-def test_merge_corank_route_matches_plain(L, na, nb):
-    """The co-rank route's positions (numpy emulation) give the plain
-    merge: sorted, stable, ties to A, PAD tails last (A's first); the
-    wrapper's merge past 8 lanes on the CPU equals both."""
+                                     (16, 700, 900), (12, 0, 50),
+                                     (33, 400, 350)])
+def test_merge_tiles_match_plain(L, na, nb):
+    """The merge kernel's tiled merge path (numpy emulation) at tiles of
+    a few keys, so that tile and thread boundaries fall inside runs of
+    equal keys and inside the PAD tails, and at its 1024-key tile: the
+    plain merge, bit for bit (sorted, stable, ties to A, A's PAD tail
+    before B's); the wrapper's merge on the CPU and the JAX package's
+    merge_sorted equal both."""
     rng = np.random.default_rng(L + na)
     a = tpk.lanes_to_numpy(tpk.sort(T(_wide_keys(rng, L, na)))[0])
     b = tpk.lanes_to_numpy(tpk.sort(T(_wide_keys(rng, L, nb)))[0])
     ea, eb = np.arange(na), np.arange(na, na + nb)
-    want, (wp,) = tmerge.merge_sorted_plain(
-        T(a), T(b), (torch.from_numpy(ea.astype(np.int32)),),
-        (torch.from_numpy(eb.astype(np.int32)),))
-    out, eo = corank_merge(a, b, ea, eb)
-    np.testing.assert_array_equal(out, tpk.lanes_to_numpy(want))
-    np.testing.assert_array_equal(eo, wp.numpy())
-    got, (gp,) = tmerge.merge_sorted(
-        T(a), T(b), (torch.from_numpy(ea.astype(np.int32)),),
-        (torch.from_numpy(eb.astype(np.int32)),))
+    pa, pb = ((torch.from_numpy(e.astype(np.int32)),) for e in (ea, eb))
+    want, (wp,) = tmerge.merge_sorted_plain(T(a), T(b), pa, pb)
+    for tile, items in ((8, 2), (1024, 4)):
+        out, eo = tiled_merge(a, b, ea, eb, tile, items)
+        np.testing.assert_array_equal(out, tpk.lanes_to_numpy(want))
+        np.testing.assert_array_equal(eo, wp.numpy())
+    got, (gp,) = tmerge.merge_sorted(T(a), T(b), pa, pb)
     assert torch.equal(got, want) and torch.equal(gp, wp)
+    jl, (jp,) = jmerge.merge_sorted(jnp.asarray(a), jnp.asarray(b),
+                                    (jnp.asarray(ea.astype(np.int32)),),
+                                    (jnp.asarray(eb.astype(np.int32)),))
+    np.testing.assert_array_equal(np.asarray(jl), tpk.lanes_to_numpy(want))
+    np.testing.assert_array_equal(np.asarray(jp), wp.numpy())
