@@ -112,7 +112,17 @@ Phases (each raises on failure; the process exits non-zero):
         form read for read (labels; --query-counts and quantiles;
         coordinates, which equal a numpy gold), the row-diff builds
         launch sort_packed and partition_compact, and at a 2^18-code
-        prefix every form built on the card equals the CPU build.
+        prefix every form built on the card equals the CPU build. The
+        row API of each form (get_rows_dense and sum_rows; the integer
+        forms' get_row_values_dense and sum_row_values) on 2^12 rows,
+        half without a bit, equals its column form's (the walked forms'
+        calls launch sort_packed and partition_compact); AnnotatedDbg's
+        per-sequence queries of 64 of 3a's reads over the label column
+        and row_diff_brwt forms equal the BatchQuery answers (their
+        reads/s one at a time against the batch logged). Before 3h, the
+        BOSS navigation calls (get_last, succ_last, succ_W, rank0) on
+        2^16 random positions of the k = 20 graph equal a nonzero /
+        searchsorted gold, and index_range_nodes holds 2^16 edges.
      i. the scale-out builds, each held bit for bit against 3a's
         in-core graphs: build_boss_out_of_core at k = 20 basic over 8
         shards and 4 pass-1 runs of 2^23 + 64 codes (its peak device
@@ -155,10 +165,12 @@ Phases (each raises on failure; the process exits non-zero):
         merge and sort launch on every rank. Logs walls, edges and peak
         memory per rank, bytes, rows and host seconds per route, the
         transport and the launches per rank. Then 3g's reads as FASTA
-        through the native codec (native/) and seqio/fasta.py: equal
-        codes, both timed.
+        through seqio/fasta.py read_and_encode (the native codec,
+        native/) and its Python parser: equal codes, both timed.
   4. the CLI (build, stats and align in processes of their own, the
-     rest through its main in this process): build, annotate, query,
+     rest through its main in this process): build (of one file: it
+     must read through the native codec, and its graph must equal the
+     build of the same records from two files), annotate, query,
      query --align, align (TSV and --json) and stats with --device
      cuda; build --mode primary, stats,
      annotate and query (records and reverse complements) on it; build
@@ -869,14 +881,22 @@ def revcomp_ints(x, K):
     return y >> np.uint64(64 - 2 * K)
 
 
+def distinct(x):
+    """The distinct values of a 1-D array, ascending: one sort and a
+    neighbour compare (``np.unique`` of 2^25 k-mers took 50-100 s on the
+    card's host, where a sort of 2^26 takes seconds: PERF.md §7)."""
+    x = np.sort(x)
+    return x[np.concatenate([[True], x[1:] != x[:-1]])]
+
+
 def gold_real_edges(codes, K, mode):
     """numpy count of the distinct k-mers: basic all, primary the
     canonical forms, canonical the closure (both orientations,
     palindromes once)."""
     fwd = fwd_kmer_ints(codes, K)
     if mode == "basic":
-        return len(np.unique(fwd))
-    canon = np.unique(np.minimum(fwd, rc_kmer_ints(codes, K)))
+        return len(distinct(fwd))
+    canon = distinct(np.minimum(fwd, rc_kmer_ints(codes, K)))
     if mode == "primary":
         return len(canon)
     pal = int(np.count_nonzero(revcomp_ints(canon, K) == canon))
@@ -1052,6 +1072,7 @@ def phase_main_path(dev):
         graph_diff_assembly(graph, ann, records, labels, tmp, fast_path)
         graph_k20_cli(graph, aln_reads, tmp, fast_path, dev)
         surface["graph launches"] = read_launches()
+        phase_navigation(graph)
         check_launched(surface["graph launches"], BUILD_KERNELS,
                        "phase 3g on the k=20 graph")
         log(f"3g launch counts on the k=20 graph's paths: "
@@ -1070,6 +1091,62 @@ def phase_main_path(dev):
         torch.cuda.empty_cache()
     cuda_equals_cpu(dev, rng)
     return launches, align_launches, results, surface
+
+
+def phase_navigation(graph):
+    """3a's k = 20 graph: get_last, succ_last, succ_W (a random symbol
+    each, minus flags included) and rank0 of ``last`` on 2^16 random
+    positions against a torch gold from the set positions of ``last``
+    and of each symbol in W (``nonzero``, ``searchsorted``), on the
+    card; index_range_nodes of 2^16 edges' source nodes holds each
+    edge."""
+    import torch
+    from metagraph_tpu_torch.common import packed
+    boss = graph.boss
+    dev = boss.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    m, n = boss.num_edges, boss.last_rank.n
+    sigma = 2 * boss.alph_size
+    i = torch.randint(0, m + 2, (1 << 16,), device=dev, generator=gen)
+    c = torch.randint(0, sigma, (1 << 16,), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = (boss.get_last(i), boss.succ_last(i), boss.succ_W(i, c),
+           boss.last_rank.rank0(i))
+    torch.cuda.synchronize()
+    t_calls = time.time() - t0
+    # the set positions of last and of each symbol in W[1..m], each with
+    # the past-the-end answer appended
+    ones = boss.last_rank.set_positions()
+    last = torch.zeros((n,), dtype=torch.bool, device=dev)
+    last[ones] = True
+    ones_end = torch.cat([ones, torch.full((1,), n, device=dev)])
+    W = boss.W.to(torch.int64)
+    succ_w = torch.empty_like(i)
+    for sym in range(sigma):
+        pos = torch.cat([torch.nonzero(W[1:] == sym).reshape(-1) + 1,
+                         torch.full((1,), m + 1, device=dev)])
+        sel = c == sym
+        succ_w[sel] = pos[torch.searchsorted(pos, i[sel])]
+    want = (last[torch.clamp(i, max=n - 1)] & (i < n),
+            ones_end[torch.searchsorted(ones_end, i)], succ_w,
+            i + 1 - torch.searchsorted(ones, i, right=True))
+    for name, g, w in zip(("get_last", "succ_last", "succ_W", "rank0"),
+                          got, want):
+        if not torch.equal(g.to(torch.int64), w.to(torch.int64)):
+            raise AssertionError(f"navigation: {name} differs from its "
+                                 f"gold on 2^16 positions")
+    e = torch.randint(0, m, (1 << 16,), device=dev, generator=gen)
+    lanes = boss.edge_lanes[:, e]
+    lo, hi = boss.index_range_nodes(packed.set_field(
+        lanes, 0, torch.zeros_like(lanes[0]), boss.bits_per_char))
+    if not bool(((lo <= e + 1) & (e + 1 < hi)).all()):
+        raise AssertionError("navigation: index_range_nodes misses an "
+                             "edge of its node")
+    log(f"navigation on the k=20 graph ({m} edges): get_last, succ_last, "
+        f"succ_W, rank0 on 2^16 random positions in {t_calls * 1e3:.2f} ms "
+        f"= the nonzero / searchsorted gold; index_range_nodes holds 2^16 "
+        f"edges")
 
 
 def cuda_equals_cpu(dev, rng):
@@ -1325,8 +1402,8 @@ def graph_clean(dev):
             if gz_text(p(f.format("cuda"))) != gz_text(p(f.format("cpu"))):
                 raise AssertionError(f"3g clean: {f.format('')} on the card "
                                      f"differs from the CPU run")
-    gold_g = np.unique(seq_kmer_ints([LETTERS[genome].tobytes()], 31))
-    in_reads = np.unique(read_window_ints(reads, 31))
+    gold_g = distinct(seq_kmer_ints([LETTERS[genome].tobytes()], 31))
+    in_reads = distinct(read_window_ints(reads, 31))
     genome_k = np.intersect1d(gold_g, in_reads, assume_unique=True)
     error_k = np.setdiff1d(in_reads, gold_g, assume_unique=True)
     out_u = np.unique(out)
@@ -1831,6 +1908,92 @@ def anno_cpu_parity(codes, dev):
         f"for array at a 2^18-code prefix (k = 20, 100 records)")
 
 
+ROW_API_ROWS = 1 << 12
+
+
+def row_api_rows(col, gen):
+    """3h's query rows for a form of source ``col`` (a column form): 2^11
+    rows with a set bit and 2^11 without, shuffled, on the card, and
+    their weights 1-5."""
+    import torch
+    dev = col.rows.device
+    half = ROW_API_ROWS // 2
+    without = torch.ones((col.num_rows,), dtype=torch.bool, device=dev)
+    without[col.rows.to(torch.int64)] = False
+    rows = []
+    for pool in (torch.nonzero(~without).reshape(-1),
+                 torch.nonzero(without).reshape(-1)):
+        rows.append(pool[torch.randint(0, pool.shape[0], (half,),
+                                       device=dev, generator=gen)])
+    rows = torch.cat(rows)
+    rows = rows[torch.randperm(ROW_API_ROWS, device=dev, generator=gen)]
+    return rows, torch.randint(1, 6, (ROW_API_ROWS,), device=dev,
+                               generator=gen)
+
+
+def row_api_check(m, col, rows, weights, what):
+    """A form's row API on ``rows`` against its column form's answer
+    (equal, on the card); the synchronised ms of each call."""
+    import torch
+    calls = [("get_rows_dense", (rows,)), ("sum_rows", (rows, weights))]
+    if m.has_values:
+        calls += [("get_row_values_dense", (rows,)),
+                  ("sum_row_values", (rows, weights))]
+    out = {}
+    for call, args in calls:
+        want = getattr(col, call)(*args)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = getattr(m, call)(*args)
+        torch.cuda.synchronize()
+        out[call] = (time.time() - t0) * 1e3
+        if got.device.type != "cuda" or not torch.equal(got, want):
+            raise AssertionError(f"3h {what}: {call} on {len(rows)} rows "
+                                 f"differs from the column form's")
+    return out
+
+
+def plain_result(result):
+    """A per-sequence query result with its masks as lists."""
+    return [(x[0], x[1].tolist()) if isinstance(x[1], np.ndarray) else x
+            for x in result]
+
+
+def per_sequence_check(bq, reads, what):
+    """AnnotatedDbg's per-sequence queries on ``reads`` against the
+    BatchQuery answer of the same reads; with_kmer_counts raises on this
+    binary annotation. Returns (per-sequence, batch) reads/s of
+    get_labels, synchronised."""
+    import torch
+    adbg = bq.adbg
+    for name, args in (("get_labels", (0.7,)),
+                       ("get_top_labels", (2 ** 62, 0.7)),
+                       ("get_top_label_signatures", (3, 0.7)),
+                       ("get_label_count_quantiles",
+                        (2 ** 62, 0.7, (0.0, 0.5, 1.0)))):
+        want = getattr(bq, name + "_batch")(reads, *args)
+        got = [getattr(adbg, name)(r, *args) for r in reads]
+        if [plain_result(x) for x in got] != [plain_result(x) for x in want]:
+            raise AssertionError(f"3h {what}: per-sequence {name} differs "
+                                 f"from the batch answer")
+    try:
+        adbg.get_top_labels(reads[0], 2 ** 62, 0.0, True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"3h {what}: with_kmer_counts on a binary "
+                             f"annotation did not raise")
+    rates = []
+    for fn in (lambda: [adbg.get_labels(r, 0.7) for r in reads],
+               lambda: bq.get_labels_batch(reads, 0.7)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        rates.append(len(reads) / (time.time() - t0))
+    return rates
+
+
 def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
     """3h. Phase 3a's k = 20 graph (2^25 codes) and its annotations of the
     1000 records: label_{i % 10} (3a's), their k-mer counts (3e's),
@@ -1872,6 +2035,9 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
 
     t_phase = time.time()
     zero_launches()
+    gen = torch.Generator(device=graph.device).manual_seed(SEED + 15)
+    # 64 reads for the per-sequence queries: 48 of the records, 16 random
+    seq_reads = reads[:48] + reads[-16:]
     small = reads[:ANNO_SMALL_READS // 2] + reads[-ANNO_SMALL_READS // 2:]
     with stored_uncompressed():
         ann.save(os.path.join(tmp, "h.labels.column.annodbg.npz"))
@@ -1888,10 +2054,15 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
                "coords": crd_ann}
     forms = anno_forms(row_diff, brwt, int_brwt, unique_row, coords, graph)
     rows, launches = [], read_launches()
+    per_seq = {}
     for src, source in sources.items():
         query = anno_queries(bq_of, src)
         col_nnz = source.matrix.nnz
+        api_rows, api_w = row_api_rows(source.matrix, gen)
         col_out = {}
+        if src == "labels":
+            per_seq["column"] = per_sequence_check(bq_of(source), seq_reads,
+                                                   "labels column")
         for n_reads in ((len(reads), ANNO_SMALL_READS) if src == "labels"
                         else (ANNO_SMALL_READS,)):
             rs = reads if n_reads == len(reads) else small
@@ -1931,7 +2102,18 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
                     zip(got, col_out[n_reads])) if x != y)
                 raise AssertionError(f"3h {src} {name}: read {bad} answers "
                                      f"differently from the column form")
+            before = read_launches()
+            api_ms = row_api_check(m, source.matrix, api_rows, api_w,
+                                   f"{src} {name}")
+            if name in ROW_DIFF_FORMS:
+                check_launched(launch_delta(before),
+                               ("sort_packed", "partition_compact"),
+                               f"the {name} row API")
+            if (src, name) == ("labels", "row_diff_brwt"):
+                per_seq[name] = per_sequence_check(bq_of(a), seq_reads,
+                                                   f"labels {name}")
             rows.append(dict(source=src, form=name, seconds=secs,
+                             row_api_ms=api_ms,
                              nnz=m.nnz, col_nnz=col_nnz, reads=n_reads,
                              rate=n_reads / dt,
                              col_rate=col_out[n_reads, "rate"],
@@ -1949,12 +2131,23 @@ def phase_anno(graph, ann, cnt_ann, codes, records, labels, reads, tmp):
             f"{row['peak_gib']:.2f} GiB in the transform, "
             f"{row['query_peak_gib']:.2f} GiB in the query (column "
             f"{row['col_query_peak_gib']:.2f}); build launches "
-            f"{row['build_launches']}")
+            f"{row['build_launches']}; row API on {ROW_API_ROWS} rows "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                        row['row_api_ms'].items()))
+    for name, (one, batch) in per_seq.items():
+        log(f"3h per-sequence queries ({name} form, {len(seq_reads)} of 3a's "
+            f"reads): get_labels one read at a time {one:.0f} reads/s, "
+            f"get_labels_batch of the same reads {batch:.0f} reads/s "
+            f"({batch / one:.1f}x)")
     log("3h checks: every binary form's labels equal the column form's "
         "read for read; the count forms' --query-counts and quantiles equal "
         "the count annotation's; the coordinates of both coordinate forms "
         f"equal the numpy gold on {ANNO_SMALL_READS} reads; the row-diff "
-        "builds launched sort_packed and partition_compact")
+        "builds launched sort_packed and partition_compact; every form's "
+        f"row API on {ROW_API_ROWS} rows (half without a bit) equals its "
+        "column form's, the walked forms' calls launched sort_packed and "
+        "partition_compact; the per-sequence queries of the column and "
+        "row_diff_brwt forms equal the batch answers")
     log(f"3h launch counts (conversions and queries): {launches}")
     t_cpu = time.time()
     anno_cpu_parity(codes, graph.device)
@@ -2526,31 +2719,32 @@ def dist_width(width, backend, text, ref):
 
 
 def native_parse_timing():
-    """``native.fasta_encode_native`` against the port's read path
-    (``seqio/fasta.py`` ``read_and_encode``) on 3g's reads as FASTA; the
-    codes must agree."""
+    """``seqio/fasta.py`` ``read_and_encode`` (the one-file build's read,
+    through the native codec) against the Python parser and encoder it
+    falls back to, on 3g's reads as FASTA; the codes must agree and the
+    codec's route must have run."""
     from metagraph_tpu_torch.kmer.alphabets import DNA
-    from metagraph_tpu_torch.native import fasta_encode_native
-    from metagraph_tpu_torch.seqio.fasta import read_and_encode
+    from metagraph_tpu_torch.kmer.extractor import encode_sequences
+    from metagraph_tpu_torch.seqio import fasta
     _, reads = clean_reads(np.random.default_rng(SEED + 30), N_CODES)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "reads.fa")
         write_fasta(path, [LETTERS[r].tobytes() for r in reads], "r")
         t0 = time.time()
-        with open(path, "rb") as f:
-            got = fasta_encode_native(f.read(), DNA.encode_table())
+        got = fasta.read_and_encode(path, DNA)
         t_native = time.time() - t0
-        if got is None:
-            raise AssertionError("3j: the native codec did not build")
+        if fasta.last_route != "native codec":
+            raise AssertionError(f"3j: read_and_encode took the "
+                                 f"{fasta.last_route}, not the native codec")
         t0 = time.time()
-        want = read_and_encode(path, DNA)
+        want = encode_sequences(fasta.read_sequences(path), DNA)
         t_py = time.time() - t0
-    if not np.array_equal(got[0], want):
-        raise AssertionError("3j: the native codes differ from "
-                             "seqio/fasta.py's")
+    if not np.array_equal(got, want):
+        raise AssertionError("3j: the native codes differ from the Python "
+                             "parser's")
     log(f"3j native codec: {len(reads)} reads ({len(want)} codes): "
-        f"fasta_encode_native {t_native:.3f} s (file read included), "
-        f"seqio/fasta.py read_and_encode {t_py:.3f} s "
+        f"read_and_encode (native codec) {t_native:.3f} s (file read "
+        f"included), the Python parser and encoder {t_py:.3f} s "
         f"({t_py / t_native:.1f}x); codes equal")
     return t_native, t_py
 
@@ -3736,6 +3930,12 @@ def cli_surface(tmp, names, seqs, gp, both_fa, device):
     # labels per record: its name, its group and the header's comment
     run("build", "-k", "31", "--mode", "canonical", "-o", path("gc"),
         path("a.fa"), path("b.fa"))
+    one, two = (load_graph(path(x), device=device).boss for x in ("g", "gc"))
+    if not all(torch.equal(getattr(one, a), getattr(two, a))
+               for a in ("edge_lanes", "W", "F")) or not torch.equal(
+                   one.last_rank.words, two.last_rank.words):
+        raise AssertionError("CLI build of one file (native codec) differs "
+                             "from the build of its records in two files")
     run("annotate", "-i", path("gc"), "--anno-header", "--header-delimiter",
         "|", "--header-comment-delim", "|", "--count-kmers", "--separately",
         "-o", path("anno"), path("a.fa"), path("b.fa"))
@@ -3784,7 +3984,9 @@ def cli_surface(tmp, names, seqs, gp, both_fa, device):
     log(f"CLI (in process, --device {device}, {time.time() - t0:.1f} s): "
         f"build of two files with -v -p 4 --mask-dummy --clear-dummy "
         f"--threads = {gold} nodes (numpy), from a stdin list = the same "
-        f"graph, --fwd-and-reverse = {closure} nodes (numpy closure), from "
+        f"graph, --fwd-and-reverse = {closure} nodes (numpy closure), the "
+        f"canonical build of the two files = phase 4's one-file build "
+        f"through the native codec, from "
         f"count sidecars = numpy weights; stats --validate --count-dummy "
         f"--print --print-internal OK; annotate --header-delimiter "
         f"--header-comment-delim --count-kmers labels; query --query-counts "
@@ -4123,7 +4325,7 @@ def phase_cli(device):
             if res.returncode != 0:
                 raise AssertionError(f"CLI {argv[0]} exited "
                                      f"{res.returncode}:\n{res.stderr}")
-            return res.stdout
+            return res
 
         # each process takes ~8 s to reach the card: three commands run in
         # processes of their own, the rest in this one
@@ -4132,7 +4334,13 @@ def phase_cli(device):
         # aligner spells canonical nodes without their orientation, as the
         # JAX package does, so a canonical path's spelling is not the read)
         gb = os.path.join(tmp, "gb")
-        run_proc("build", "-k", "31", "--mode", "canonical", "-o", g, fa)
+        # one file: the native codec's read (cli_surface holds the graph
+        # against the build of the same records from two files)
+        err = run_proc("build", "-k", "31", "--mode", "canonical", "-o", g,
+                       fa).stderr
+        if "M chars (native codec)" not in err:
+            raise AssertionError(f"CLI build of one file did not read "
+                                 f"through the native codec:\n{err}")
         run("build", "-k", "31", "--mode", "basic", "-o", gb, fa)
         want = [f"{i}\t{n}\t{n}" for i, n in enumerate(names)]
         for graph, extra in ((g, ()), (gb, ("--align",))):
@@ -4143,12 +4351,12 @@ def phase_cli(device):
                 raise AssertionError(f"CLI query {' '.join(extra)} output "
                                      f"wrong: {out.splitlines()[:3]}")
         cli_serve(tmp, g, fa, want, env, device, run)
-        stats = run_proc("stats", g)
+        stats = run_proc("stats", g).stdout
         if "mode: canonical" not in stats:
             raise AssertionError(f"CLI stats output wrong:\n{stats}")
         seqs = {n: s for n, s in zip(names, seqs)}
         rows = [line.split("\t") for line in
-                run_proc("align", "-i", gb, fa).splitlines()]
+                run_proc("align", "-i", gb, fa).stdout.splitlines()]
         if [r[0] for r in rows] != names or any(
                 r[2:] != ["+", seqs[r[0]], str(2 * len(seqs[r[0]])),
                           str(len(seqs[r[0]])), f"{len(seqs[r[0]])}=", "0"]
@@ -4198,7 +4406,8 @@ def phase_cli(device):
         cli_anno(tmp, run, fa, names, list(seqs.values()), g)
         cli_scaleout(tmp, run, fa, list(seqs.values()), env)
     log(f"CLI build/annotate/query/query --align/align/align --json/stats "
-        f"--device {device}: exit 0; each of {len(names)} records labelled "
+        f"--device {device}: exit 0; the one-file build read through the "
+        f"native codec; each of {len(names)} records labelled "
         f"with its own name and aligned to its graph with score 2*len and "
         f"CIGAR len=; primary build/stats/annotate/query: every record and "
         f"its reverse complement labelled with its name; build from a KMC "

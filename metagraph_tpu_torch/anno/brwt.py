@@ -33,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import device as devmod
 from ..common import merge as pmerge
 from ..common import packed
 from .matrix import RowHits, RowSparse, expand_ranges, host_tensor
@@ -49,6 +50,10 @@ class BrwtNode:
     @property
     def n_local(self) -> int:
         return int(self.bits.shape[0])
+
+    @property
+    def num_set(self) -> int:
+        return int(self.bits.sum())
 
 
 def pack_words(bits_list: List[torch.Tensor]):
@@ -101,6 +106,9 @@ class Brwt(RowHits):
         return self.words.device
 
     def num_nodes(self) -> int:
+        return len(self.parent)
+
+    def num_tree_nodes(self) -> int:
         return len(self.parent)
 
     def avg_arity(self) -> float:
@@ -288,6 +296,28 @@ def greedy_pairs(M: torch.Tensor) -> List[Tuple[int, int]]:
             if 2 * len(pairs) >= n - 1:
                 break
     return pairs
+
+
+def greedy_linkage(columns, num_rows: int, subsample: int = 1_000_000,
+                   seed: int = 0, device=None) -> List[Tuple[int, int]]:
+    """Greedy similarity pairing of columns given as their row lists
+    (tensors or numpy arrays): ``greedy_pairs`` over the columns' bits
+    on ``subsample_rows(num_rows, subsample, seed)``. Runs on the
+    columns' device (``device``, else the card, for numpy columns)."""
+    n = len(columns)
+    if n <= 1:
+        return []
+    dev = devmod.resolve(device if device is not None else next(
+        (c.device for c in columns if isinstance(c, torch.Tensor)), "cuda"))
+    keep = torch.from_numpy(subsample_rows(num_rows, subsample, seed)).to(dev)
+
+    def bits(col) -> torch.Tensor:
+        if not isinstance(col, torch.Tensor):
+            col = torch.from_numpy(np.asarray(col, np.int64))
+        return torch.isin(keep, col.to(device=dev, dtype=torch.int64))
+
+    return greedy_pairs(torch.stack([bits(c) for c in columns])
+                        .to(torch.float32))
 
 
 def _sample_matrix(matrix: RowSparse, keep: np.ndarray) -> torch.Tensor:

@@ -89,6 +89,11 @@ class _Coords(RowHits):
         return (torch.nonzero(ok).reshape(-1)[owner], key[flat] % C,
                 torch.ones_like(owner))
 
+    def columns_of_rows(self, query_rows) -> torch.Tensor:
+        """(Q, num_cols) bool: the labels with a coordinate at each
+        row (``presence``)."""
+        return self.presence(query_rows)
+
     def tuples_for_rows(self, rows) -> Dict[int, Dict[int, np.ndarray]]:
         """{row: {col: ascending coords}} of the unique valid rows, from
         one batched fetch (the reference's get_row_tuples)."""
@@ -138,6 +143,10 @@ class CoordMatrix(_Coords):
             lanes = out[:, :int(count)]
         r, c, x = _lane_triples(lanes)
         return CoordMatrix(r, c.to(torch.int32), x, num_rows, num_cols)
+
+    def pair_key(self, r, c) -> torch.Tensor:
+        """row * num_cols + col, int64 on the matrix's device."""
+        return self._int64(r) * self.num_cols + self._int64(c)
 
     def _triples(self, q: torch.Tensor):
         owner, flat = expand_ranges(

@@ -46,6 +46,11 @@ class IntBrwt(RowHits):
     def nnz(self) -> int:
         return int(self.vals.shape[0])
 
+    @property
+    def values(self) -> torch.Tensor:
+        """(nnz,) int64 values in row-major (row, column) order."""
+        return self.vals
+
     def row_hits(self, rows: torch.Tensor):
         """(query index, column, value) of every entry of the given rows,
         ascending by (query, column)."""

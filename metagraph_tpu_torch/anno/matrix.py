@@ -10,15 +10,19 @@ annotations). Row queries are batched: per-row [lo, hi) ranges by
 Every representation of ``anno/`` (RowSparse, Brwt, RowDiff, ...)
 answers ``row_hits(rows)``: the (query, column, value) of every entry of
 the queried rows, sparse, value 1 in a binary matrix. ``RowHits`` builds
-on it the (Q, num_cols) ``presence(rows)`` and, for the integer ones
-(``has_values``), ``values_dense(rows)``; each representation gives back
-its logical matrix with ``to_row_sparse()``.
+the row API of the JAX package's forms on that one call, for every
+form: ``presence`` / ``get_rows_dense``, ``get_rows``, ``sum_rows`` and,
+for the integer ones (``has_values``), ``values_dense`` /
+``get_row_values_dense``, ``sum_row_values`` and ``row_values_list``.
+Rows and weights may be tensors, numpy arrays or lists; the results are
+tensors on the matrix's device. Each representation gives back its
+logical matrix with ``to_row_sparse()``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,27 +53,84 @@ def host_tensor(a, device) -> torch.Tensor:
 
 
 class RowHits:
-    """The dense row queries of a representation that has ``row_hits``,
-    ``num_cols``, ``device`` and ``has_values``."""
+    """The row API of a representation that has ``row_hits``,
+    ``num_cols``, ``device`` and ``has_values``. A query row outside the
+    matrix, or without a set bit, has no entries."""
 
-    def _scatter(self, rows: torch.Tensor, dtype, value) -> torch.Tensor:
+    def _int64(self, x) -> torch.Tensor:
+        """Rows or weights (a tensor, numpy array or list) as a flat int64
+        tensor on the matrix's device."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.asarray(x, np.int64))
+        return x.reshape(-1).to(device=self.device, dtype=torch.int64)
+
+    def _need_values(self, what: str):
+        if not self.has_values:
+            raise ValueError(f"{what} needs a matrix with values (a count "
+                             f"annotation)")
+
+    def _scatter(self, rows, dtype, value) -> torch.Tensor:
         """(Q, num_cols) with ``value(v)`` summed at each entry."""
+        rows = self._int64(rows)
         Q, C = rows.shape[0], self.num_cols
         q, c, v = self.row_hits(rows)
         return torch.zeros((Q * C,), dtype=dtype, device=self.device) \
             .index_add_(0, q * C + c, value(v).to(dtype)).view(Q, C)
 
-    def presence(self, rows: torch.Tensor) -> torch.Tensor:
+    def presence(self, rows) -> torch.Tensor:
         """(Q, num_cols) bool: the set bits of each queried row (the
         per-k-mer signature of --print-signature)."""
         return self._scatter(rows, torch.int32, torch.ones_like) > 0
 
-    def values_dense(self, rows: torch.Tensor) -> torch.Tensor:
+    def get_rows_dense(self, rows) -> torch.Tensor:
+        """(Q, num_cols) bool: ``presence``."""
+        return self.presence(rows)
+
+    def values_dense(self, rows) -> torch.Tensor:
         """(Q, num_cols) int64 values of each queried row, 0 where unset
         (the reference IntMatrix::get_row_values)."""
-        if not self.has_values:
-            raise ValueError("values_dense needs a matrix with values")
+        self._need_values("values_dense")
         return self._scatter(rows, torch.int64, lambda v: v)
+
+    def get_row_values_dense(self, rows) -> torch.Tensor:
+        """(Q, num_cols) int64: ``values_dense``."""
+        return self.values_dense(rows)
+
+    def get_rows(self, rows) -> List[List[int]]:
+        """Per queried row, its set columns ascending (the reference
+        BinaryMatrix::get_rows)."""
+        dense = self.presence(rows)
+        q, c = torch.nonzero(dense, as_tuple=True)
+        per = torch.bincount(q, minlength=dense.shape[0]).tolist()
+        return [x.tolist() for x in torch.split(c, per)] if per else []
+
+    def _weighted(self, rows, weights, value) -> torch.Tensor:
+        q, c, v = self.row_hits(self._int64(rows))
+        return torch.zeros((self.num_cols,), dtype=torch.int64,
+                           device=self.device).index_add_(
+            0, c, self._int64(weights)[q] * value(v))
+
+    def sum_rows(self, rows, weights) -> torch.Tensor:
+        """(num_cols,) int64: per column, the sum of the weights of the
+        queried rows that have it set (reference BinaryMatrix::sum_rows;
+        a row queried twice counts twice)."""
+        return self._weighted(rows, weights, torch.ones_like)
+
+    def sum_row_values(self, rows, weights) -> torch.Tensor:
+        """(num_cols,) int64: per column, the sum of weight times value
+        over the queried rows (reference IntMatrix::sum_row_values, the
+        --query-counts sum)."""
+        self._need_values("sum_row_values")
+        return self._weighted(rows, weights, lambda v: v)
+
+    def row_values_list(self, rows) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(columns, values) int64 of the non-zero values of the queried
+        rows, row by row, columns ascending (the quantile queries'
+        IntMatrix::get_row_values; a row queried twice counts twice)."""
+        self._need_values("row_values_list")
+        dense = self.values_dense(rows)
+        q, c = torch.nonzero(dense, as_tuple=True)
+        return c, dense[q, c]
 
     def to_row_sparse(self) -> "RowSparse":
         return row_sparse_of(self)
@@ -132,19 +193,10 @@ class RowSparse(RowHits):
 
     def row_ranges(self, row_idx: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        row_idx = row_idx.to(self.rows.dtype)
+        row_idx = self._int64(row_idx).to(self.rows.dtype)
         lo = torch.searchsorted(self.rows, row_idx, side="left")
         hi = torch.searchsorted(self.rows, row_idx, side="right")
         return lo, hi
-
-    def sum_rows(self, row_idx: torch.Tensor,
-                 weights: torch.Tensor) -> torch.Tensor:
-        """(num_cols,) weighted count of set bits per column over the
-        given rows (reference BinaryMatrix::sum_rows)."""
-        q, e = self.row_entries(row_idx)
-        return torch.zeros((self.num_cols,), dtype=torch.int64,
-                           device=self.device).index_add_(
-            0, self.cols[e].long(), weights.to(torch.int64)[q])
 
     def row_entries(self, row_idx: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -158,6 +210,25 @@ class RowSparse(RowHits):
         q, e = self.row_entries(row_idx)
         return q, self.cols[e].long(), (torch.ones_like(q) if self.values
                                         is None else self.values[e].long())
+
+    def get_column(self, col: int) -> torch.Tensor:
+        """The rows with column ``col`` set, ascending (the stored int32
+        rows)."""
+        return self.rows[self.cols == col]
+
+    def slice_rows(self, row_idx, max_row_nnz: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """((Q, max_row_nnz) int32 columns of each queried row, padded
+        with -1 and cut at ``max_row_nnz``; (Q,) int64 set-bit counts,
+        not cut)."""
+        lo, hi = self.row_ranges(row_idx)
+        counts = hi - lo
+        offs = torch.arange(max_row_nnz, device=self.device)[None, :]
+        flat = torch.clamp(lo[:, None] + offs, max=max(self.nnz - 1, 0))
+        col = (self.cols[flat] if self.nnz else
+               torch.zeros(flat.shape, dtype=self.cols.dtype,
+                           device=self.device))
+        return torch.where(offs < counts[:, None], col, -1), counts
 
     # -- serialization -----------------------------------------------------
 

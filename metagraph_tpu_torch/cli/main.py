@@ -223,9 +223,21 @@ def _build_from_sequences(args, alphabet, bits_per_count: int, vcf: bool):
     """FASTA / FastQ / VCF input: the streamed collect (``--disk-swap``),
     the out-of-core build (``--num-shards`` in basic mode), the
     suffix-sharded build (``--suffix-len``, or ``--num-shards`` in the
-    other modes) or the single-shard build. Returns (Boss, the real-edge
+    other modes), the single-shard build of one file's codes (read by
+    ``read_and_encode``: the native codec, under the JAX CLI's
+    conditions) or of the parsed records. Returns (Boss, the real-edge
     mask of an out-of-core build or None)."""
-    from ..graph.boss_construct import build_boss
+    from ..graph.boss_construct import build_boss, build_boss_from_codes
+    if (len(args.fnames) == 1 and not vcf and not args.disk_swap
+            and args.suffix_len == 0 and args.num_shards == 1
+            and not args.fwd_and_reverse):
+        from ..seqio import fasta
+        codes = fasta.read_and_encode(args.fnames[0], alphabet)
+        log(f"Encoded {len(codes) / 1e6:.1f} M chars ({fasta.last_route})")
+        with telemetry.span("construct", items=len(codes), unit="chars"):
+            return build_boss_from_codes(
+                codes, args.k, alphabet=alphabet, mode=args.mode,
+                bits_per_count=bits_per_count, device=args.device), None
     streamed = ((args.disk_swap or (args.num_shards > 1
                                     and args.mode == "basic"))
                 and not vcf and not args.fwd_and_reverse
@@ -628,45 +640,65 @@ def cmd_annotate(args):
         f"({ann.num_labels} labels, {ann.matrix.nnz} relations)")
 
 
-def _query_batch(bq, seqs, args):
-    """One batch through the query mode the flags select, in the JAX
-    CLI's order (signature, coordinates, quantiles, k-mer counts, label
-    counts, labels): per read its result (empty when unlabeled) and its
-    output fields after the read's index and name."""
-    adbg = bq.adbg
+def _query_mode(args):
+    """The query mode the flags select, in the JAX CLI's order
+    (signature, coordinates, quantiles, k-mer counts, label counts,
+    labels): the name of ``AnnotatedDbg``'s per-sequence method
+    (``BatchQuery``'s batch method is the name with ``_batch``), its
+    arguments after the reads, and ``fields(adbg, result)``: one read's
+    output fields after its index and name."""
+    top, ratio = args.num_top_labels, args.discovery_fraction
     if args.print_signature:
-        results = bq.get_top_label_signatures_batch(
-            seqs, args.num_top_labels, args.discovery_fraction)
-        return results, lambda res: "".join(
-            f"\t<{label}>:{int(mask.sum())}:"
-            f"{(mask.astype(np.uint8) + 48).tobytes().decode()}:"
-            f"{adbg.score_kmer_presence_mask(mask)}" for label, mask in res)
+        return "get_top_label_signatures", (top, ratio), lambda adbg, res: \
+            "".join(f"\t<{label}>:{int(mask.sum())}:"
+                    f"{(mask.astype(np.uint8) + 48).tobytes().decode()}:"
+                    f"{adbg.score_kmer_presence_mask(mask)}"
+                    for label, mask in res)
     if args.query_coords:
         # per label one field per window: its coordinates, comma-joined
-        try:
-            results = bq.get_kmer_coordinates_batch(
-                seqs, args.num_top_labels, args.discovery_fraction)
-        except ValueError as e:
-            raise SystemExit(f"query --query-coords: {e}") from e
-        return results, lambda res: "".join(
-            f"\t<{label}>" + "".join(":" + ",".join(map(str, c))
-                                     for c in tuples)
-            for label, tuples in res)
+        return "get_kmer_coordinates", (top, ratio), lambda adbg, res: \
+            "".join(f"\t<{label}>" + "".join(":" + ",".join(map(str, c))
+                                              for c in tuples)
+                    for label, tuples in res)
     if args.count_quantiles:
         qs = [float(x) for x in args.count_quantiles.split()]
-        results = bq.get_label_count_quantiles_batch(
-            seqs, args.num_top_labels, args.discovery_fraction, qs)
-        return results, lambda res: "".join(
-            f"\t<{label}>:" + ":".join(str(q) for q in quants)
-            for label, quants in res)
+        return "get_label_count_quantiles", (top, ratio, qs), \
+            lambda adbg, res: "".join(
+                f"\t<{label}>:" + ":".join(str(q) for q in quants)
+                for label, quants in res)
     if args.count_labels or args.query_counts:
-        results = bq.get_top_labels_batch(
-            seqs, args.num_top_labels, args.discovery_fraction,
-            with_kmer_counts=args.query_counts)
-        return results, lambda res: "".join(f"\t<{label}>:{c}"
-                                            for label, c in res)
-    results = bq.get_labels_batch(seqs, args.discovery_fraction)
-    return results, lambda res: "\t" + args.anno_labels_delimiter.join(res)
+        return "get_top_labels", (top, ratio, args.query_counts), \
+            lambda adbg, res: "".join(f"\t<{label}>:{c}" for label, c in res)
+    return "get_labels", (ratio,), lambda adbg, res: \
+        "\t" + args.anno_labels_delimiter.join(res)
+
+
+def _query_batch(bq, seqs, args):
+    """One batch through the query mode the flags select: per read its
+    result (empty when unlabeled) and its output fields after the read's
+    index and name."""
+    method, call_args, fields = _query_mode(args)
+    try:
+        results = getattr(bq, method + "_batch")(seqs, *call_args)
+    except ValueError as e:
+        if not args.query_coords:
+            raise
+        # --query-coords over an annotation without coordinates
+        raise SystemExit(f"query --query-coords: {e}") from e
+    return results, lambda res: fields(bq.adbg, res)
+
+
+def format_query_result(idx: int, name: str, adbg, seq: bytes,
+                        args) -> str:
+    """One sequence's output line as ``query`` prints it, through
+    ``AnnotatedDbg``'s per-sequence method of the mode ``args`` selects
+    (raising where it raises); "" when the sequence is unlabeled and
+    ``args.suppress_unlabeled`` is set."""
+    method, call_args, fields = _query_mode(args)
+    res = getattr(adbg, method)(seq, *call_args)
+    if not res and args.suppress_unlabeled:
+        return ""
+    return f"{idx}\t{name}{fields(adbg, res)}\n"
 
 
 def _query_address(args):

@@ -104,6 +104,10 @@ class BitRank:
             packed.as_uint(self.words[wi]) & _low_mask(ic & 31))
         return torch.where(i < 0, 0, r)
 
+    def rank0(self, i: torch.Tensor) -> torch.Tensor:
+        """#zeros in bits[0..i] (inclusive)."""
+        return i + 1 - self.rank1(i)
+
     def select1(self, r: torch.Tensor) -> torch.Tensor:
         """Position of the r-th one (1-based r), as bit_vector::select1."""
         r = r.to(torch.int32)
@@ -172,11 +176,16 @@ class SymbolRank:
                           sigma=sigma, n_seq=n)
 
     @property
-    def seq(self) -> torch.Tensor:
-        """(n_seq,) int8 view of the sequence."""
+    def seq_pad(self) -> torch.Tensor:
+        """(nb * _BS,) int8 unpacked words, the pad symbol included."""
         w = self.seq_words
         parts = torch.stack([(w >> (8 * b)) & 0xFF for b in range(4)], dim=1)
-        return parts.reshape(-1).to(torch.int8)[:self.n_seq]
+        return parts.reshape(-1).to(torch.int8)
+
+    @property
+    def seq(self) -> torch.Tensor:
+        """(n_seq,) int8 view of the sequence."""
+        return self.seq_pad[:self.n_seq]
 
     @property
     def n(self) -> int:

@@ -1,8 +1,8 @@
 """AnnotatedDbg: graph + annotation, the label-query engine.
 
-PyTorch counterpart of ``metagraph_tpu/engine/annotated_dbg.py`` for the
-batched query path. A read batch is concatenated with one INVALID byte
-between reads, every window is mapped to a node in one device pass, and
+PyTorch counterpart of ``metagraph_tpu/engine/annotated_dbg.py``. A read
+batch is concatenated with one INVALID byte between reads, every window
+is mapped to a node in one device pass, and
 per-(read, label) k-mer counts come from one interval expand + one
 ``index_add_`` over ``read_id * num_labels + label`` keys. Selection
 semantics are the reference's:
@@ -27,7 +27,10 @@ sparse entries of the present windows' rows (``row_hits``, the anchor
 walks and BRWT descents included), decoded a bounded number of windows
 at a time, and those are summed per read on the device. The per-read
 selection and formatting run on the host, in the JAX package's order of
-operations.
+operations. ``AnnotatedDbg``'s per-sequence calls (``get_labels``,
+``get_top_labels``, ``get_top_label_signatures``,
+``get_label_count_quantiles``, ``get_kmer_coordinates``) are one-read
+batches.
 """
 
 from __future__ import annotations
@@ -56,6 +59,57 @@ class AnnotatedDbg:
     def num_labels(self) -> int:
         return self.annotation.num_labels
 
+    # -- one sequence: a one-read batch (the reference AnnotatedDBG's
+    # per-sequence calls; ``sequence`` is bytes or str) --------------------
+
+    def get_labels(self, sequence: bytes | str,
+                   presence_ratio: float = 0.0) -> List[str]:
+        """The labels in at least min_count of the sequence's windows, in
+        label-code order."""
+        return BatchQuery(self).get_labels_batch(
+            _one(sequence), presence_ratio)[0]
+
+    def get_top_labels(self, sequence: bytes | str,
+                       num_top_labels: int = 2 ** 62,
+                       presence_ratio: float = 0.0,
+                       with_kmer_counts: bool = False
+                       ) -> List[Tuple[str, int]]:
+        """(label, count) of the labels in at least min_count windows;
+        with ``with_kmer_counts`` the count is the sum of the
+        annotation's values. That needs a count annotation: on a binary
+        one a sequence that reports labels raises ValueError, where the
+        JAX package fails too."""
+        bq = BatchQuery(self)
+        if with_kmer_counts and not self.annotation.matrix.has_values:
+            if bq._selected(_one(sequence), presence_ratio)[0] is not None:
+                raise ValueError("with_kmer_counts needs a count "
+                                 "annotation (annotate --count-kmers)")
+            return []
+        return bq.get_top_labels_batch(
+            _one(sequence), num_top_labels, presence_ratio,
+            with_kmer_counts)[0]
+
+    def get_top_label_signatures(self, sequence: bytes | str,
+                                 num_top_labels: int = 2 ** 62,
+                                 presence_ratio: float = 0.0
+                                 ) -> List[Tuple[str, np.ndarray]]:
+        """(label, bool k-mer presence mask over the windows) of the
+        labels in at least min_count windows, by (count desc, code
+        asc)."""
+        return BatchQuery(self).get_top_label_signatures_batch(
+            _one(sequence), num_top_labels, presence_ratio)[0]
+
+    def get_label_count_quantiles(self, sequence: bytes | str,
+                                  num_top_labels: int = 2 ** 62,
+                                  presence_ratio: float = 0.0,
+                                  count_quantiles: Sequence[float] = ()
+                                  ) -> List[Tuple[str, List[int]]]:
+        """(label, its values' quantiles over the windows, zeros first)
+        of the labels in at least min_count windows."""
+        return BatchQuery(self).get_label_count_quantiles_batch(
+            _one(sequence), num_top_labels, presence_ratio,
+            count_quantiles)[0]
+
     def get_kmer_coordinates(self, sequence: bytes | str,
                              num_top_labels: int = 2 ** 62,
                              presence_ratio: float = 0.0
@@ -63,7 +117,7 @@ class AnnotatedDbg:
         """Per label, one coordinate list per k-mer window of one
         sequence (reference AnnotatedDBG::get_kmer_coordinates)."""
         return BatchQuery(self).get_kmer_coordinates_batch(
-            [sequence], num_top_labels, presence_ratio)[0]
+            _one(sequence), num_top_labels, presence_ratio)[0]
 
     def score_kmer_presence_mask(self, mask: np.ndarray,
                                  match_score: int = 1,
@@ -350,6 +404,10 @@ class BatchQuery:
                              for ql in q_low]))
             out.append(res)
         return out
+
+
+def _one(sequence: bytes | str) -> List[bytes]:
+    return [sequence.encode() if isinstance(sequence, str) else sequence]
 
 
 def _top_pairs(enc, select_counts, counts, min_count: int,

@@ -131,6 +131,10 @@ class Boss:
     def get_W(self, i) -> torch.Tensor:
         return self.W_rank[torch.clamp(self._t(i), 0, self.W_rank.n_seq - 1)]
 
+    def get_last(self, i) -> torch.Tensor:
+        """last[i] as bool (False outside [0, m])."""
+        return self.last_rank.bit(self._t(i))
+
     # -- rank / select (the reference's 1-based semantics) ------------------
 
     def rank_last(self, i) -> torch.Tensor:
@@ -139,6 +143,10 @@ class Boss:
 
     def select_last(self, r) -> torch.Tensor:
         return self.last_rank.select1(self._t(r))
+
+    def succ_last(self, i) -> torch.Tensor:
+        """Smallest j >= i with last[j] set, else m + 1."""
+        return self.last_rank.next1(self._t(i))
 
     def pred_last(self, i) -> torch.Tensor:
         """Largest j <= i with last[j] set, else 0."""
@@ -156,6 +164,14 @@ class Boss:
         """Position of the r-th occurrence of c in W[1..]."""
         r, c = self._t(r), self._t(c)
         return self.W_rank.select(c, r + (c == 0).to(r.dtype))
+
+    def succ_W(self, i, c) -> torch.Tensor:
+        """Smallest j >= i (j >= 1) with W[j] == c, else num_edges + 1."""
+        i, c = self._t(i), self._t(c)
+        m = self.num_edges
+        total = self.rank_W(torch.full_like(c, m), c)
+        r = self.rank_W(i - 1, c) + 1
+        return torch.where(r <= total, self.select_W(r, c), m + 1)
 
     # -- navigation --------------------------------------------------------
 
@@ -269,6 +285,21 @@ class Boss:
         hit = packed.eq(self.edge_lanes[:, pos_c], query_lanes)
         return torch.where(hit, pos_c + 1, 0)
 
+    def index_range_nodes(self, node_lanes: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """[lo, hi) 1-based edge rows of the edges whose source node is
+        each packed node (its label field 0): two searches over
+        ``edge_lanes``, the second for the node plus one just above the
+        label field. Fast state only."""
+        if self.edge_lanes is None:
+            raise ValueError("index_range_nodes needs the edge k-mers "
+                             "(the fast state)")
+        lo = packed.searchsorted(self.edge_lanes, node_lanes, side="left")
+        hi = packed.searchsorted(
+            self.edge_lanes, _increment(node_lanes, self.bits_per_char),
+            side="left")
+        return lo + 1, hi + 1
+
     def node_chars_ranksel(self, rows) -> torch.Tensor:
         """(Q, K) int32 char codes of the edge k-mers at ``rows``, by
         rank/select alone (the reference's get_node_seq bwd walk): K - 1
@@ -322,6 +353,18 @@ def _finalize_ranks(W: torch.Tensor, last: torch.Tensor, F: torch.Tensor,
     i = torch.clamp(F, -1, last_rank.n - 1)
     NF = torch.where(i < 0, 0, last_rank.rank1(i)).to(torch.int32)
     return last_rank, W_rank, NF
+
+
+def _increment(lanes: torch.Tensor, shift: int) -> torch.Tensor:
+    """(L, N) packed keys plus 1 << shift, the carry running from the
+    last (least significant) lane up; queries never overflow."""
+    out = []
+    carry = torch.full_like(lanes[0], 1 << shift, dtype=torch.int64)
+    for j in range(lanes.shape[0] - 1, -1, -1):
+        s = packed.as_uint(lanes[j]) + carry
+        carry = s >> 32
+        out.append(packed.from_uint(s))
+    return torch.stack(out[::-1])
 
 
 def _build_lut(edge_lanes: torch.Tensor, n_kept):

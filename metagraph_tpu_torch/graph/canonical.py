@@ -117,6 +117,12 @@ class CanonicalDbg:
             packing.to_prev(lanes, self.k, self.alphabet.bits_per_char, c)
             for c in range(1, self.alphabet.size)])
 
+    def outdegree(self, nodes: torch.Tensor) -> torch.Tensor:
+        return torch.sum(self.successors(nodes) > 0, dim=1)
+
+    def indegree(self, nodes: torch.Tensor) -> torch.Tensor:
+        return torch.sum(self.predecessors(nodes) > 0, dim=1)
+
     # -- decoding and annotation rows --------------------------------------
 
     def node_chars(self, nodes: torch.Tensor) -> torch.Tensor:

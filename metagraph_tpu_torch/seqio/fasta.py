@@ -1,11 +1,13 @@
 """Host-side FASTA/FastQ reading and writing.
 
 Copied from ``metagraph_tpu/seqio/fasta.py`` (that package imports JAX
-at its root, so the port cannot import it). The parser is pure Python:
-``read_and_encode`` parses in Python and encodes with numpy, the same
-codes the C codec gives. The codec is ported (``native/``), but this
-module does not call it, where the JAX package's ``read_and_encode``
-does for a single file. ``ExtendedFastaWriter`` writes contigs with
+at its root, so the port cannot import it). The record parser is pure
+Python. ``read_and_encode`` (the single-file ``build``'s read) encodes a
+whole file through the native C codec (``native/``) as the JAX package's
+does, and falls back to the Python parser and numpy, which give the same
+codes, only where the codec returns None (no C compiler on the machine,
+or bytes that are neither FASTA nor FastQ); ``last_route`` names the
+route the last call took. ``ExtendedFastaWriter`` writes contigs with
 a per-k-mer count sidecar (``<base>.kmer_counts.gz``, one line of
 space-separated counts per record) and ``iter_weighted_records`` reads
 them back, in the JAX package's format.
@@ -98,9 +100,25 @@ def read_sequences(path: str) -> List[bytes]:
     return [r.seq for r in parse_records(path)]
 
 
+# the route of the last ``read_and_encode`` call: "native codec" or
+# "Python parser"
+last_route: Optional[str] = None
+
+
 def read_and_encode(path: str, alphabet) -> np.ndarray:
-    """File -> encoded code array with INVALID separators."""
+    """File -> encoded code array with an INVALID separator after each
+    record: the native codec in one pass over the file's bytes, else the
+    Python parser (see the module note). Sets ``last_route``."""
+    global last_route
     from ..kmer.extractor import encode_sequences
+    from ..native import fasta_encode_native
+    with _open_maybe_gz(path) as f:
+        data = f.read()
+    res = fasta_encode_native(data, alphabet.encode_table())
+    if res is not None:
+        last_route = "native codec"
+        return res[0]
+    last_route = "Python parser"
     return encode_sequences(read_sequences(path), alphabet)
 
 

@@ -1,8 +1,7 @@
 """KMC k-mer counter database reader.
 
-The port's copy of ``metagraph_tpu/seqio/kmc.py`` (numpy only), less
-``kmc_to_sequences``, which no path of the port calls. Replaces the
-reference's KMC-api-based parser
+The port's copy of ``metagraph_tpu/seqio/kmc.py`` (numpy only).
+Replaces the reference's KMC-api-based parser
 (metagraph/src/seq_io/kmc_parser.hpp). Reads KMC1 and KMC2 databases
 (.kmc_pre/.kmc_suf pair) directly and fully vectorized:
 
@@ -159,3 +158,17 @@ def read_kmers(
         out = np.concatenate([out, rc[not_pal]])
         counts = np.concatenate([counts, counts[not_pal]])
     return out, counts, hdr
+
+
+def kmc_to_sequences(file_base: str, min_count: int = 1,
+                     max_count: Optional[int] = None
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """The k-mers as one code array, each followed by an INVALID
+    separator (each k-mer its own sequence, for the extraction path),
+    and their counts in that order."""
+    from ..kmer.alphabets import INVALID_CODE
+    chars, counts, _ = read_kmers(file_base, min_count, max_count)
+    n, k = chars.shape
+    joined = np.full((n, k + 1), INVALID_CODE, np.uint8)
+    joined[:, :k] = chars
+    return joined.reshape(-1), counts

@@ -810,6 +810,89 @@ def test_anno_forms_cuda_equal_cpu(dev, form, tmp_path):
             bqs[1].get_kmer_coordinates_batch(reads[:40])
 
 
+WALKED_FORMS = ["row_diff", "int_row_diff", "row_diff_brwt",
+                "row_diff_int_brwt", "tuple_row_diff"]
+
+
+@pytest.mark.parametrize("form", WALKED_FORMS)
+def test_row_api_cuda_equals_cpu(dev, form):
+    """The row API of a walked form (built on the CPU, loaded on the card
+    from its arrays) on 2^12 rows, half without a bit, duplicates
+    included: every call's answer on the card equals the CPU's, comes
+    back on the card, and folds through the sort and partition
+    kernels."""
+    from metagraph_tpu_torch.anno import coords, int_brwt, row_diff
+    from metagraph_tpu_torch.anno.annotator import annotation_from_numpy
+    from metagraph_tpu_torch.engine.annotated_dbg import annotate_sequences
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    from metagraph_tpu_torch.graph.dbg_succinct import DbgSuccinct
+    rng = np.random.default_rng(51)
+    codes = rng.integers(1, 5, 1 << 15).astype(np.uint8)
+    codes[9000:9300] = codes[1000:1300]
+    g = DbgSuccinct.from_boss(build_boss_from_codes(codes, 15, device="cpu"))
+    text = np.frombuffer(b"$ACGT", np.uint8)[codes].tobytes()
+    items = [(text[i:i + 800], [f"l{(i // 800) % 5}"])
+             for i in range(0, len(text) // 2, 800)]
+    if form == "tuple_row_diff":
+        m = coords.build_tuple_row_diff(
+            coords.annotate_coordinates(g, items).finalize().matrix, g, 16)
+    else:
+        a = annotate_sequences(g, items, with_counts="int" in form).finalize()
+        m = {"row_diff": row_diff.build_row_diff,
+             "int_row_diff": row_diff.build_int_row_diff,
+             "row_diff_brwt": row_diff.build_row_diff_brwt,
+             "row_diff_int_brwt": int_brwt.build_int_row_diff_brwt}[form](
+            a.matrix, g, 16)
+    d = dict(m.to_npz_dict(), labels=np.array(["x"] * m.num_cols))
+    cpu, card = (annotation_from_numpy(d, x).matrix for x in ("cpu", dev))
+    n = m.num_rows
+    rows = np.concatenate([rng.integers(0, n // 2, 1 << 11),
+                           rng.integers(n // 2 + 2000, n, 1 << 11)])
+    w = rng.integers(1, 6, len(rows))
+    calls = [("get_rows_dense", (rows,)), ("sum_rows", (rows, w)),
+             ("get_rows", (rows,))]
+    if m.has_values:
+        calls += [("get_row_values_dense", (rows,)),
+                  ("sum_row_values", (rows, w)), ("row_values_list", (rows,))]
+    for name, args in calls:
+        merge.sort_launches = merge.partition_launches = 0
+        got, want = (getattr(x, name)(*args) for x in (card, cpu))
+        torch.cuda.synchronize()
+        assert merge.sort_launches > 0 and merge.partition_launches > 0, name
+        if name == "get_rows":
+            assert got == want
+            continue
+        for g_, w_ in zip(*((x,) if isinstance(x, torch.Tensor) else x
+                            for x in (got, want))):
+            assert g_.device.type == "cuda"
+            assert torch.equal(g_.cpu(), w_), name
+
+
+def test_navigation_calls_cuda_equal_cpu(dev):
+    """get_last, succ_last, succ_W (every symbol), rank0 and
+    index_range_nodes on every row of a 2^14-code graph: card equals
+    CPU."""
+    from metagraph_tpu_torch.graph.boss_construct import build_boss_from_codes
+    codes = np.random.default_rng(4).integers(1, 5, 1 << 14).astype(np.uint8)
+    got, want = (build_boss_from_codes(codes, 15, device=d)
+                 for d in (dev, "cpu"))
+    m, sigma = want.num_edges, 2 * want.alph_size
+    rows = torch.arange(-1, m + 3)
+    i = torch.arange(0, m + 2).repeat(sigma)
+    c = torch.arange(sigma).repeat_interleave(m + 2)
+    for name, args in (("get_last", (rows,)), ("succ_last", (rows,)),
+                       ("succ_W", (i, c))):
+        assert torch.equal(
+            getattr(got, name)(*(a.to(dev) for a in args)).cpu(),
+            getattr(want, name)(*args)), name
+    assert torch.equal(got.last_rank.rank0(rows.to(dev)).cpu(),
+                       want.last_rank.rank0(rows))
+    nodes = packed.set_field(want.edge_lanes, 0, torch.zeros(
+        m, dtype=torch.int32), want.bits_per_char)
+    _same(got.index_range_nodes(nodes.to(dev)),
+          want.index_range_nodes(nodes))
+
+
 # ---------------------------------------------------------------------------
 # the scale-out builds (parallel/, anno/row_diff_disk.py)
 # ---------------------------------------------------------------------------
