@@ -9,14 +9,15 @@ Phases (each raises on failure; the process exits non-zero):
   1. builds the CUDA kernels of metagraph_tpu_torch/csrc from source.
   2. checks each kernel against its plain PyTorch version on the card,
      bit for bit, at the main path's shapes (2^25 entries for the build
-     kernels, the sort at L = 2, 4 and 4 with a payload, and on the lanes
-     the k = 20 collect sorts, with the radix passes that ran; 2^14 pairs
-     of 112 x 128 for the alignment DP, whose wave route is timed in
-     turns with its long route) and at edge cases; then the three build
-     kernels at 5 to 8 lanes (the sort of the Protein k = 31 collect's
-     lanes, partition and merges at 2^25, the sort's edge cases); past
-     8 lanes at 2^25 (sort_packed by lane groups at L = 9, 10 and 16
-     with 0 and 2 payloads; partition_compact in one launch and
+     kernels, the sort at L = 2, 3, 4, 4 with a payload and 5, and on
+     the lanes the k = 20 collect sorts, with the radix passes that ran;
+     2^14 pairs of 112 x 128 for the alignment DP, whose wave route is
+     timed in turns with its long route) and at edge cases; then the
+     three build kernels at 5 to 8 lanes (the sort of the Protein k = 31
+     collect's lanes with 0-2 payloads, partition and merges at 2^25,
+     the sort's edge cases); past 8 lanes at 2^25 (sort_packed, one
+     launch a call, at L = 9, 10, 12 and 16 with 0 and 2 payloads and
+     its edge cases at L = 9 and 16; partition_compact in one launch and
      merge_sorted by merge-path tiles at L = 9, 12 and 16, the merge
      with |B| << |A| and |A| = |B|); and the
      DP with BLOSUM62 (sigma = 27) and a 32 x 32 table on both routes;
@@ -393,19 +394,23 @@ def collect_lanes(dev, K):
 
 def phase_sort(gen, dev):
     """sort_packed at the main path's shapes (the collect's L = 2, the
-    sort-based finish's L = 4, the KMC stage's L = 4 with one payload)
-    and at edge cases, all bit-exact; returns the L = 2 summary."""
+    sort-based finish's L = 4, the KMC stage's L = 4 with one payload;
+    L = 3 and 5 beside them) and at edge cases, all bit-exact; returns
+    the L = 2 summary."""
     import torch
     from metagraph_tpu_torch.common import merge, packed
     n = N_CODES
     summary = None
     for L, E, what in ((2, 0, "collect, 2-bit domain"),
+                       (3, 0, "k=20 edge keys, random"),
                        (4, 0, "finish keys, k=31"),
-                       (4, 1, "KMC sort-unique / rc half, k=31")):
+                       (4, 1, "KMC sort-unique / rc half, k=31"),
+                       (5, 0, "DNA5 k=33-40, random")):
         res = check_sort(gen, dev, n, L, E, time_it=True)
         err, ms, plain, lib_ms, (bms, _) = res
         lib = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
-        log(f"sort_packed L={L} E={E} N=2^25 ({what}): bit-exact, kernel "
+        log(f"sort_packed L={L} E={E} N=2^25 ({what}; "
+            f"{merge.sort_route(L, E)} route): bit-exact, kernel "
             f"{ms:.3f} ms, plain {plain:.3f} ms, library torch.sort of the "
             f"fused key {lib}, bound {bms:.3f} ms (median of 5)")
         summary = summary or res
@@ -422,7 +427,7 @@ def phase_sort(gen, dev):
         f"plain {plain:.3f} ms, library torch.sort of the fused key "
         f"{lib_ms:.3f} ms, bound {bms:.3f} ms (median of 5)")
     del lanes
-    tile = merge._cuda.lib().mg_sort_tile(3)
+    tile = merge._cuda.lib().mg_sort_tile()
     for m in (0, 1, 2, tile - 1, tile, tile + 1, 5 * tile + 100,
               (1 << 20) + 13):
         check_sort(gen, dev, m, 3, 2)
@@ -490,9 +495,9 @@ def phase_wide_lanes(gen, dev):
         err, ms, plain, _, (bms, _) = check_sort(gen, dev, 0, 0, E,
                                                  time_it=True, x=x)
         log(f"sort_packed L=8 E={E} N=2^25 (the Protein k=31 collect's "
-            f"lanes, 1 % PAD): bit-exact, {passes} of 32 digit passes "
-            f"run, kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
-            f"{bms:.3f} ms (median of 5)")
+            f"lanes, 1 % PAD; {merge.sort_route(8, E)} route): bit-exact, "
+            f"{passes} of 32 digit passes run, kernel {ms:.3f} ms, plain "
+            f"{plain:.3f} ms, bound {bms:.3f} ms (median of 5)")
     for L in (5, 6, 7, 8):
         res = check_partition(gen, dev, n, L, n, 0.5, time_it=L == 8)
         if L == 8:
@@ -504,7 +509,7 @@ def phase_wide_lanes(gen, dev):
         check_partition(gen, dev, n + 13, L, n + 13, 0.5, E=2)
         if L < 8:
             check_sort(gen, dev, n, L, L % 3)
-        tile = merge._cuda.lib().mg_sort_tile(L)
+        tile = merge._cuda.lib().mg_sort_tile()
         for m in (0, 1, tile - 1, tile, tile + 1, 5 * tile + 100):
             check_sort(gen, dev, m, L, 2)
         m = 100_003
@@ -550,8 +555,8 @@ def phase_wide_lanes(gen, dev):
 
 def wide_lanes(gen, n, L, dev, pad=0.01):
     """(L, n) random lanes with PAD at ``pad`` of the columns and equal
-    keys in the high lanes (values 0-3), so that every lane group
-    decides some order."""
+    keys in the high lanes (values 0-3), so that the high lanes decide
+    some order too."""
     import torch
     from metagraph_tpu_torch.common import packed
     x = torch.randint(-2**31, 2**31, (L, n), generator=gen,
@@ -561,27 +566,60 @@ def wide_lanes(gen, n, L, dev, pad=0.01):
     return x
 
 
+def sort_edge_cases(gen, dev, L):
+    """The index route's edges at L lanes, bit-exact with 0-2 payloads:
+    N around its tile, all keys equal, all PAD, a constant middle lane
+    (never read) with PAD, duplicates in every lane; one sort launch a
+    call."""
+    import torch
+    from metagraph_tpu_torch.common import merge, packed
+    tile = merge._cuda.lib().mg_sort_tile()
+    for m in (0, 1, tile - 1, tile, tile + 1, 5 * tile + 100):
+        check_sort(gen, dev, m, L, 2)
+    m = 100_003
+    check_sort(gen, dev, 0, 0, 1, x=packed.lanes_from_numpy(
+        np.full((L, m), 77, np.uint32), dev))
+    check_sort(gen, dev, 0, 0, 2, x=packed.full_pad(m, L, dev))
+    y = torch.randint(0, 4, (L, m), generator=gen, device=dev,
+                      dtype=torch.int32)
+    y[L // 2] = -1                           # all ones, never a digit
+    y[:, torch.rand(m, generator=gen, device=dev) < 0.1] = packed.PAD_LANE
+    p0, s0 = merge.sort_digit_passes, merge.sort_launches
+    check_sort(gen, dev, 0, 0, 2, x=y)
+    if merge.sort_digit_passes - p0 != L - 1 or merge.sort_launches - s0 != 1:
+        raise AssertionError(f"sort_packed L={L}, a constant middle lane: "
+                             f"{merge.sort_digit_passes - p0} digit passes "
+                             f"(want {L - 1}), "
+                             f"{merge.sort_launches - s0} launches")
+
+
 def phase_past_eight_lanes(gen, dev):
-    """The build kernels past the sort kernel's 8 lanes (k > 64 over the
-    4-bit alphabets, k > 32 over Protein), at 2^25 entries, bit for bit
-    against the plain versions: sort_packed by lane groups at L = 9, 10
-    and 16 with 0 and 2 payloads; partition_compact (one launch) and
-    merge_sorted (merge-path tiles: a splits launch, then a tile launch)
-    at L = 9, 12 and 16, the merge with |B| << |A| and |A| = |B|; logs
-    the kernel's, the plain version's, the library's and the bound's
-    ms."""
+    """The build kernels past 8 lanes (k > 64 over the 4-bit alphabets,
+    k > 32 over Protein), at 2^25 entries, bit for bit against the plain
+    versions: sort_packed (the index route, one launch a call) at L = 9,
+    10, 12 and 16 with 0 and 2 payloads and its edge cases at L = 9 and
+    16; partition_compact (one launch) and merge_sorted (merge-path
+    tiles: a splits launch, then a tile launch) at L = 9, 12 and 16, the
+    merge with |B| << |A| and |A| = |B|; logs the kernel's, the plain
+    version's, the library's and the bound's ms."""
     import torch
     from metagraph_tpu_torch.common import merge
     n = N_CODES
     for L in (9, 10, 12, 16):
         x = wide_lanes(gen, n, L, dev)
-        if L != 12:
-            for E in (0, 2):
-                err, ms, plain, _, (bms, _) = check_sort(
-                    gen, dev, 0, 0, E, time_it=True, x=x)
-                log(f"sort_packed L={L} E={E} N=2^25 (lane groups, 1 % "
-                    f"PAD): bit-exact, kernel {ms:.3f} ms, plain "
-                    f"{plain:.3f} ms, bound {bms:.3f} ms (median of 5)")
+        for E in (0, 2):
+            s0 = merge.sort_launches
+            err, ms, plain, _, (bms, _) = check_sort(
+                gen, dev, 0, 0, E, time_it=True, x=x)
+            log(f"sort_packed L={L} E={E} N=2^25 ({merge.sort_route(L, E)} "
+                f"route, 1 % PAD): bit-exact, kernel {ms:.3f} ms, plain "
+                f"{plain:.3f} ms, bound {bms:.3f} ms (median of 5)")
+            if merge.sort_launches - s0 != 7:    # check, warm-up, 5 timed
+                raise AssertionError(f"sort_packed L={L}: "
+                                     f"{merge.sort_launches - s0} launches "
+                                     f"for 7 calls")
+        if L in (9, 16):
+            sort_edge_cases(gen, dev, L)
         if L != 10:
             res = check_partition(gen, dev, n, L, n, 0.5, E=1, time_it=True)
             check_partition(gen, dev, 100003, L, 1000, 0.7, E=2)
@@ -610,6 +648,9 @@ def phase_past_eight_lanes(gen, dev):
             del a
         del x
         torch.cuda.empty_cache()
+    log("sort_packed edge cases at L = 9 and 16 (N = 0, 1, tile - 1, tile, "
+        "tile + 1, 5 tiles + 100; all equal, all PAD, a constant middle "
+        "lane that no pass reads; one launch a call): bit-exact")
 
 
 def phase_kernels(dev):
@@ -3056,7 +3097,7 @@ def check_align_cuda_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 3a-wide: a build past the sort kernel's 8 lanes
+# phase 3a-wide: a build past 8 lanes
 # ---------------------------------------------------------------------------
 
 WIDE_K = 65                     # 65 DNA chars of 4 bits: 9 lanes
@@ -3086,9 +3127,10 @@ def wide_gold(codes, K=WIDE_K):
 
 
 def phase_wide_build(dev):
-    """3a-wide. Phase 3a's 2^25 codes at k = 65, canonical (9 lanes: the
-    sorts by lane groups, each compaction one launch, the rc and dummy
-    merges by merge-path tiles), cold and warm: real edges equal the
+    """3a-wide. Phase 3a's 2^25 codes at k = 65, canonical (9 lanes: each
+    sort one launch of the index route, each compaction one launch, the
+    rc and dummy merges by merge-path tiles), cold and warm: real edges
+    equal the
     numpy gold (the distinct forward windows and reverse complements,
     counted exactly on the host); the three build kernels launched (the
     warm build's launches logged); and the card's build of a 2^18-code

@@ -11,8 +11,8 @@ The build runs on the matrix's device: each row's columns, padded with
 fields (the first column most significant; a field's width a power of
 two), so the lanes' order is the padded rows' lexicographic order,
 which ``np.unique(axis=0)`` gives in the JAX package; ``merge.lex_order``
-orders them (``sort_packed`` over lane groups), and each run of equal
-rows is one code.
+orders them (one sort kernel call for any number of lanes, returning
+the order alone), and each run of equal rows is one code.
 """
 
 from __future__ import annotations

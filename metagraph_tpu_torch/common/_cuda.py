@@ -43,10 +43,17 @@ SOURCES = {
                       _P, _P], _I),
     },
     "sort.cu": {
-        "mg_sort_tile": ([_I], _I),
-        "mg_sort_hist": ([_P, _LL, _I, _P, _P], _I),
+        "mg_sort_tile": ([], _I),
+        "mg_sort_lanes_route_max": ([], _I),
+        "mg_sort_blocks_per_sm": ([_I, _I], _I),
+        "mg_sort_row_words": ([_I], _I),
+        "mg_sort_hist": ([_P, _LL, _I, _P, _P, _P, _P], _I),
         "mg_sort_pass": ([_P, _LL, _I, _P, _P, _I, _P, _P, _P, _P, _I, _I,
                           _P, _P], _I),
+        "mg_sort_index_pass": ([_P, _LL, _I, _P, _P, _P, _P, _I, _P, _P,
+                                _P], _I),
+        "mg_sort_gather": ([_P, _LL, _I, _P, _P, _P, _I, _P, _P, _P, _P],
+                           _I),
     },
     "align_dp.cu": {
         "mg_align_dp_scratch_ints": ([_LL, _I], _LL),

@@ -20,27 +20,30 @@ PyTorch counterpart of ``metagraph_tpu/common/merge.py``:
   * ``sort_packed`` — full sort of lanes with payloads (replaces the JAX
     ``sort_packed``: leaf sorts, then segmented ``_merge_call`` levels);
     hand-written CUDA in ``csrc/sort.cu``: an LSD radix sort over 8-bit
-    digits. One launch counts every digit's histogram; the host copies
-    them back (one small synchronising copy per sort) and
-    ``radix_passes`` keeps the digits on which the keys differ; then one
-    launch per such digit ranks each tile stably, finds its offsets by
-    decoupled look-back (``csrc/lookback.cuh``, shared with the
-    partition) and scatters. PAD is its own bin, after 0xFF. Plain
-    version ``packed.sort``. Both are stable, where the TPU's was not,
-    so the two agree bit for bit, payloads included.
-
-The sort kernel takes at most ``MAX_LANES`` lanes a launch. Wider keys
-(k > 64 over the 4-bit alphabets, k > 32 over Protein) sort by an LSD
-sort over groups of at most ``MAX_LANES`` lanes, least significant
-first, with the permutation as its one payload (``lex_order``).
+    digits, for any number of lanes. One launch counts every digit's
+    histogram; the host copies them back (one small synchronising copy
+    per sort) and ``radix_passes`` keeps the digits on which the keys
+    differ; then one launch per such digit ranks each tile stably, finds
+    its offsets by decoupled look-back (``csrc/lookback.cuh``, shared
+    with the partition) and scatters. PAD is its own bin, after 0xFF.
+    ``sort_route`` picks one of two routes by the number of lanes and
+    payloads: the lanes route moves every lane and payload in every
+    pass; the index route sorts (lane value, 32-bit index) pairs one
+    lane at a time, least significant first, reads each lane through
+    the index in its first pass (a lane with no digit to run is never
+    read), then gathers the lanes and payloads once. ``lex_order`` is
+    the index route without that gather. Plain version ``packed.sort``.
+    Both are stable, where the TPU's was not, so the two agree bit for
+    bit, payloads included.
 
 Each wrapper dispatches on the device of the tensor it is given and on
 nothing else: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel (or raises). ``partition_launches`` and
 ``merge_launches`` count kernel launches, one per wrapper call that
 launched, so a run can show that its main path went through them;
-``sort_launches`` counts ``sort_packed`` the same way, and
-``sort_digit_passes`` the radix passes its launches ran.
+``sort_launches`` counts ``sort_packed`` and ``lex_order`` calls that
+launched, one each at any number of lanes, and ``sort_digit_passes``
+the radix passes they ran in either route.
 """
 
 from __future__ import annotations
@@ -57,15 +60,7 @@ merge_launches = 0
 sort_launches = 0
 sort_digit_passes = 0
 
-# the most lanes one sort launch takes
-MAX_LANES = 8
 _MAX_EXTRAS = 2
-
-
-def _lane_groups(L: int) -> list:
-    """(lo, hi) lane ranges of at most MAX_LANES, most significant
-    first."""
-    return [(lo, min(lo + MAX_LANES, L)) for lo in range(0, L, MAX_LANES)]
 
 
 def _check_cuda_args(what: str, lanes: Sequence[torch.Tensor],
@@ -258,11 +253,36 @@ def radix_passes(hist, n_pad: int) -> list:
     return run
 
 
-def _sort_passes(lib, x, extras, bufs, hist, passes, n_pad, status,
+def sort_route(L: int, E: int) -> str:
+    """The route ``sort_packed`` takes on the card for L lanes and E
+    payloads. "lanes" moves every lane and payload in every digit pass,
+    8 (L + E) bytes a key a pass; "index" sorts (lane value, 32-bit
+    index) pairs a lane at a time, 16 bytes a key a pass, reading each
+    lane through the index in its first pass (a random 4-byte read),
+    then gathers the lanes and payloads once. The crossover, measured on
+    an H100 at 2^25 random keys with both routes in one process
+    (PERF.md §6): the lanes route is faster up to 2 lanes and at 3 with
+    at most one payload, the index route at 3 with two and from 4 on."""
+    return "lanes" if L <= 2 or (L == 3 and E <= 1) else "index"
+
+
+def index_pass_plan(passes) -> list:
+    """The index route's launches for ``passes`` (digits, least
+    significant first): (digit, first, last) per pass, where ``first``
+    marks a lane's first pass (it reads the lane through the index) and
+    ``last`` its last (no pass reads its values after it). A lane with
+    no digit in ``passes`` is never read."""
+    lanes = [d // 4 for d in passes]
+    return [(d, i == 0 or lanes[i - 1] != lanes[i],
+             i == len(passes) - 1 or lanes[i + 1] != lanes[i])
+            for i, d in enumerate(passes)]
+
+
+def _lanes_route(lib, x, extras, bufs, hist, passes, n_pad, status,
                  stream):
     """One launch per digit; every pass moves all lanes and payloads,
     ping-ponging between the two ``bufs`` so that the last pass lands in
-    the first."""
+    the first. Returns (lanes, payloads)."""
     L, n = x.shape
     src, src_e = x, extras
     for i, digit in enumerate(passes):
@@ -275,81 +295,142 @@ def _sort_passes(lib, x, extras, bufs, hist, passes, n_pad, status,
             int(i == 0 and n_pad > 0), status.data_ptr(), stream),
             "sort_packed pass")
         src, src_e = dst, dst_e
+    return src, tuple(src_e)
 
 
-def _sort_cuda(x, extras):
+def _index_route(lib, x, bufs, hist, passes, mask, status, stream):
+    """One launch per digit over (value, index) pairs, lane by lane,
+    ping-ponging between ``bufs`` (two (value, index) pairs of (n,)
+    int32): a lane's first pass reads the lane through the index
+    (``mg_sort_index_pass``), its later ones are one-lane lanes-route
+    passes with the index as the payload, on the lane's rows of the
+    histograms. ``mask`` (n,) uint8 marks the PADs for the sort's first
+    pass (None: no PAD). Returns the sorted order as (n,) int32 holding
+    uint32 indices."""
+    L, n = x.shape
+    vin = iin = None
+    row_bytes = 256 * hist.element_size()
+    for i, (digit, first, last) in enumerate(index_pass_plan(passes)):
+        vout, iout = bufs[i % 2]
+        if first:
+            if last:                      # no later pass reads the values
+                vout = None
+            _cuda.check(lib.mg_sort_index_pass(
+                x.data_ptr(), n, L, _ptr(iin), _ptr(vout), iout.data_ptr(),
+                hist.data_ptr(), digit, _ptr(mask) if i == 0 else None,
+                status.data_ptr(), stream), "sort_packed index pass")
+        else:
+            _cuda.check(lib.mg_sort_pass(
+                vin.data_ptr(), n, 1, iin.data_ptr(), None, 1,
+                vout.data_ptr(), iout.data_ptr(), None,
+                hist.data_ptr() + 4 * (digit // 4) * row_bytes, digit % 4, 0,
+                status.data_ptr(), stream), "sort_packed index pass")
+        vin, iin = vout, iout
+    return iin
+
+
+def _sort_cuda(x, extras, route):
+    """The card's sort by ``route``: one histogram launch, ONE
+    synchronising copy of the histograms, then the digit passes of the
+    lanes or the index route; "order" is the index route without the
+    final gather, which returns the order (int64) instead of the sorted
+    keys."""
     global sort_launches, sort_digit_passes
     _check_cuda_args("sort_packed", [x], extras, len(extras))
     L, n = x.shape
     if any(e.shape != (n,) for e in extras):
         raise TypeError("sort_packed: payloads must match the key count")
+    order_only = route == "order"
+    if order_only:
+        route = "index"
+    if route == "index" and n >= 1 << 32:
+        raise ValueError(f"sort_packed: {n} keys; the index route's index "
+                         f"is 32-bit (at most 2^32 - 1 keys)")
     dev = x.device
     x = x.contiguous()
     extras = [e.contiguous() for e in extras]
-    out = torch.empty((L, n), dtype=packed.LANE_DTYPE, device=dev)
-    eouts = [torch.empty_like(e) for e in extras]
     if n == 0:
-        return out, tuple(eouts)
+        if order_only:
+            return torch.zeros((0,), dtype=torch.int64, device=dev)
+        return (torch.empty_like(x), tuple(torch.empty_like(e)
+                                           for e in extras))
     lib = _cuda.lib()
     hist = torch.empty((4 * L * 256 + 1,), dtype=torch.int64, device=dev)
     # the passes' scratch, allocated before the synchronising copy so that
-    # the first pass follows it at once: the ping-pong buffers, and the
-    # look-back status words with the tile counter after them
-    bufs = [(out, eouts), (torch.empty_like(out),
-                           [torch.empty_like(e) for e in extras])]
-    status = torch.empty((-(-n // lib.mg_sort_tile(L)) * 257 + 1,),
-                         dtype=torch.int64, device=dev)
+    # the first pass follows it at once: the ping-pong buffers (the
+    # lanes route's first pair is its output), the index route's PAD
+    # mask, row copy of the keys (one row a key, for the final gather)
+    # and outputs, and the look-back status words with the tile counter
+    # after them
+    mask = rows = None
+    if route == "lanes":
+        bufs = [(torch.empty_like(x), [torch.empty_like(e) for e in extras])
+                for _ in range(2)]
+    else:
+        bufs = [tuple(torch.empty((n,), dtype=torch.int32, device=dev)
+                      for _ in range(2)) for _ in range(2)]
+        mask = torch.empty((n,), dtype=torch.uint8, device=dev)
+        if not order_only:
+            rows = torch.empty((n * lib.mg_sort_row_words(L),),
+                               dtype=torch.int32, device=dev)
+            out = torch.empty_like(x)
+            eouts = [torch.empty_like(e) for e in extras]
     with torch.cuda.device(dev):          # the runtime launches on it
+        status = torch.empty((-(-n // lib.mg_sort_tile()) * 257 + 1,),
+                             dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _cuda.check(lib.mg_sort_hist(x.data_ptr(), n, L, hist.data_ptr(),
-                                     stream), "sort_packed histogram")
+                                     _ptr(mask), _ptr(rows), stream),
+                    "sort_packed histogram")
         sort_launches += 1
         h = hist.cpu().numpy()            # the one synchronising copy
         n_pad = int(h[-1])
         passes = radix_passes(h[:-1].reshape(4 * L, 256), n_pad)
-        if not passes:
-            out.copy_(x)
-            for eo, e in zip(eouts, extras):
-                eo.copy_(e)
-            return out, tuple(eouts)
-        _sort_passes(lib, x, extras, bufs, hist, passes, n_pad, status,
-                     stream)
         sort_digit_passes += len(passes)
+        if not passes:                    # already in order
+            if order_only:
+                return torch.arange(n, device=dev)
+            return x.clone(), tuple(e.clone() for e in extras)
+        if route == "lanes":
+            return _lanes_route(lib, x, extras, bufs, hist, passes, n_pad,
+                                status, stream)
+        idx = _index_route(lib, x, bufs, hist, passes,
+                           mask if n_pad else None, status, stream)
+        if order_only:
+            return packed.as_uint(idx)
+        _cuda.check(lib.mg_sort_gather(
+            rows.data_ptr(), n, L, idx.data_ptr(), *_pad_ptrs(extras),
+            len(extras), out.data_ptr(), *_pad_ptrs(eouts), stream),
+            "sort_packed gather")
     return out, tuple(eouts)
 
 
 def lex_order(x: torch.Tensor) -> torch.Tensor:
     """Stable ascending order (int64 permutation) of (L, n) lanes of any
-    L: ``sort_packed`` over lane groups of at most MAX_LANES, least
-    significant first, each carrying the permutation as its payload.
-    Stable sorts keep the earlier groups' order among equal keys, and PAD
-    (all ones in every group) stays last."""
+    L, PAD last: on the card one sort by the index route without the
+    final gather (or, where ``sort_route`` keeps the lanes route, one
+    sort carrying the identity as its payload); on the CPU
+    ``packed.sort_order``."""
+    if x.device.type == "cpu":
+        return packed.sort_order(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"lex_order: no kernel for {x.device}")
     L, n = x.shape
-    perm = None
-    for lo, hi in reversed(_lane_groups(L)):
-        if perm is None:
-            chunk = x[lo:hi].contiguous()
-            perm = torch.arange(n, dtype=torch.int32, device=x.device)
-        else:
-            chunk = x[lo:hi][:, perm.long()]
-        _, (perm,) = sort_packed(chunk, perm)
-    return perm.to(torch.int64)
+    if sort_route(L, 1) == "lanes":
+        _, (perm,) = _sort_cuda(x, [torch.arange(n, dtype=torch.int32,
+                                                 device=x.device)], "lanes")
+        return perm.to(torch.int64)
+    return _sort_cuda(x, [], "order")
 
 
 def sort_packed(x: torch.Tensor, *extras: torch.Tensor
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """Stable ascending sort of (L, N) lanes (lane 0 most significant,
-    unsigned; PAD last) with 0-2 four-byte payloads riding along.
-    Returns (lanes, extras); equal keys keep their input order. More
-    than MAX_LANES lanes sort by ``lex_order``, then one gather of the
-    lanes and payloads."""
-    if x.shape[0] > MAX_LANES:
-        if any(e.shape != x.shape[1:] for e in extras):
-            raise TypeError("sort_packed: payloads must match the key count")
-        perm = lex_order(x)
-        return x[:, perm], tuple(e[perm] for e in extras)
+    """Stable ascending sort of (L, N) lanes of any L (lane 0 most
+    significant, unsigned; PAD last) with 0-2 four-byte payloads riding
+    along. Returns (lanes, extras); equal keys keep their input order.
+    One ``sort_launches`` per call on the card."""
     if x.device.type == "cpu":
         return sort_packed_plain(x, *extras)
     if x.device.type != "cuda":
         raise ValueError(f"sort_packed: no kernel for {x.device}")
-    return _sort_cuda(x, extras)
+    return _sort_cuda(x, extras, sort_route(x.shape[0], len(extras)))

@@ -276,16 +276,25 @@ def _sort_keys(x: torch.Tensor) -> list:
     return keys
 
 
-def sort(x: torch.Tensor, *extras: torch.Tensor
-         ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-    """Stable ascending sort of the big integers; co-sort ``extras``.
-    Stable ``torch.sort`` passes over fused int64 keys, last key first
-    (the counterpart of ``lax.sort(..., is_stable=True)``)."""
+def sort_order(x: torch.Tensor) -> torch.Tensor:
+    """The stable ascending order (int64 permutation) of the big
+    integers: stable ``torch.sort`` passes over fused int64 keys, last
+    key first."""
     perm = None
     for key in _sort_keys(x):
         k = key if perm is None else key[perm]
         idx = torch.sort(k, stable=True).indices
         perm = idx if perm is None else perm[idx]
+    if perm is None:                      # no lanes
+        perm = torch.arange(x.shape[1], device=x.device)
+    return perm
+
+
+def sort(x: torch.Tensor, *extras: torch.Tensor
+         ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Stable ascending sort of the big integers; co-sort ``extras``
+    (the counterpart of ``lax.sort(..., is_stable=True)``)."""
+    perm = sort_order(x)
     return x[:, perm], tuple(e[perm] for e in extras)
 
 

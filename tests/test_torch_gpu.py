@@ -174,7 +174,7 @@ def _keys(rng, n, L, hi, dev):
 
 
 SORT_CASES = [
-    # n (or a size in pass tiles at L lanes), L, payloads, lane values below
+    # n (or a size in pass tiles), L, payloads, lane values below
     (0, 2, 1, 1 << 32),
     (1, 4, 2, 1 << 32),
     (2, 3, 1, 1 << 32),
@@ -185,20 +185,27 @@ SORT_CASES = [
     (100_003, 4, 1, 5),                    # heavy duplicates
     ((1 << 20) + 13, 2, 0, 1 << 32),
     (5000, 8, 2, 3),                       # 8 lanes
+] + [
+    # every lane count of the index route up to 16, and 13: the widest
+    # key the port's tests build (Protein k = 48: 49 8-bit characters)
+    (n, L, E, hi)
+    for L in (3, 4, 5, 8, 9, 12, 13, 16) for E in (0, 1, 2)
+    for n, hi in (("tile-1", 1 << 32), ("tile", 5), ("tile+1", 1 << 32),
+                  ("5tile+100", 3))
 ]
 
 
-def _size(n, L):
+def _size(n):
     if isinstance(n, int):
         return n
-    tile = merge._cuda.lib().mg_sort_tile(L)
+    tile = merge._cuda.lib().mg_sort_tile()
     return {"tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
             "5tile+100": 5 * tile + 100}[n]
 
 
 @pytest.mark.parametrize("n,L,E,hi", SORT_CASES)
 def test_sort_kernel_matches_plain(dev, n, L, E, hi):
-    n = _size(n, L)
+    n = _size(n)
     rng = np.random.default_rng(n + L)
     x = _keys(rng, n, L, hi, dev)
     x[:, rng.random(n) < 0.05] = packed.PAD_LANE
@@ -212,29 +219,54 @@ def test_sort_kernel_matches_plain(dev, n, L, E, hi):
     _same([got, *ge], [want, *we])
 
 
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5, 8, 9, 12, 13, 16, 40])
+def test_sort_one_launch_per_call(dev, L):
+    """sort_packed and lex_order count one sort launch per call at any
+    lane count, with 0-2 payloads; lex_order is the plain order."""
+    rng = np.random.default_rng(L)
+    n = 20_011
+    x = _keys(rng, n, L, 3, dev)
+    x[:, rng.random(n) < 0.05] = packed.PAD_LANE
+    extras = [torch.arange(n, dtype=torch.int32, device=dev)] * 2
+    for E in (0, 1, 2):
+        n0 = merge.sort_launches
+        got, ge = merge.sort_packed(x, *extras[:E])
+        assert merge.sort_launches == n0 + 1
+        want, we = merge.sort_packed_plain(x, *extras[:E])
+        _same([got, *ge], [want, *we])
+    n0 = merge.sort_launches
+    order = merge.lex_order(x)
+    assert merge.sort_launches == n0 + 1
+    assert order.dtype == torch.int64
+    assert torch.equal(order.cpu(), packed.sort_order(x.cpu()))
+
+
 SPECIAL_KINDS = {
     # kind: the digit passes the sort must run (None: not checked)
     "equal": 0, "pad": 0, "sorted": None, "reversed": None,
     "collect": 5,           # k = 20 in 2 bits: lane 0 < 256, 3 digits drop
     "ff-key": 4,            # keys 0xFF on every digit that runs, and PAD
+    "middle-constant": None,  # a constant middle lane, never gathered
 }
 
 
+@pytest.mark.parametrize("L", [3, 9])
 @pytest.mark.parametrize("kind", list(SPECIAL_KINDS))
-def test_sort_kernel_special_inputs(dev, kind):
+def test_sort_kernel_special_inputs(dev, kind, L):
     """Stability on all-equal keys, all PAD, sorted and reversed input;
-    constant digits skipped, and a non-PAD key that reads 0xFF on every
-    digit that runs kept before the PADs."""
-    n, L = 3 * 4096 + 777, 3
+    constant digits skipped, a non-PAD key that reads 0xFF on every
+    digit that runs kept before the PADs, and a constant middle lane
+    that no pass reads."""
+    n = 3 * 4096 + 777
     rng = np.random.default_rng(5)
     if kind == "equal":
         x = packed.lanes_from_numpy(np.full((L, n), 12345, np.uint32), dev)
     elif kind == "pad":
         x = packed.full_pad(n, L, dev)
     elif kind == "collect":
-        lanes = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64).astype(
-            np.uint32)
-        lanes[0] &= 0xFF
+        lanes = np.zeros((L, n), np.uint32)
+        lanes[-2:] = rng.integers(0, 1 << 32, (2, n), dtype=np.uint64)
+        lanes[-2] &= 0xFF
         lanes[:, rng.random(n) < 0.1] = 0xFFFFFFFF
         x = packed.lanes_from_numpy(lanes, dev)
     elif kind == "ff-key":
@@ -242,6 +274,11 @@ def test_sort_kernel_special_inputs(dev, kind):
         lanes[-1] = rng.integers(0, 3, n).astype(np.uint32) * 0x7F7F7F7F
         lanes[-1, rng.random(n) < 0.2] = 0xFFFFFFFF
         lanes[:, rng.random(n) < 0.2] = 0xFFFFFFFF
+        x = packed.lanes_from_numpy(lanes, dev)
+    elif kind == "middle-constant":
+        lanes = rng.integers(0, 4, (L, n), dtype=np.uint64).astype(np.uint32)
+        lanes[L // 2] = 0xDEADBEEF
+        lanes[:, rng.random(n) < 0.1] = 0xFFFFFFFF
         x = packed.lanes_from_numpy(lanes, dev)
     else:
         x, _ = merge.sort_packed_plain(_keys(rng, n, L, 1 << 32, dev))
@@ -254,6 +291,10 @@ def test_sort_kernel_special_inputs(dev, kind):
     _same([got, gp], [want, wp])
     if SPECIAL_KINDS[kind] is not None:
         assert merge.sort_digit_passes - p0 == SPECIAL_KINDS[kind]
+    if kind == "middle-constant":
+        # one digit of each other lane (values 0-3); the constant lane
+        # has none, so the index route never reads it
+        assert merge.sort_digit_passes - p0 == L - 1
 
 
 def test_sort_kernel_rejects_bad_input(dev):
@@ -562,11 +603,11 @@ WIDE_CASES = [(L, E) for L in (5, 6, 7, 8) for E in (0, 1, 2)]
 @pytest.mark.parametrize("L,E", WIDE_CASES)
 def test_wide_lane_kernels_match_plain(dev, L, E):
     """The three build kernels at 5 to 8 lanes (DNA5 / DNACaseSent past
-    k = 32, Protein past k = 16): sort_packed (the 12-key tile, a ragged
-    last tile, PAD mixed in, Protein's 8-bit fields), partition_compact
-    and merge_sorted with 0-2 payloads."""
+    k = 32, Protein past k = 16): sort_packed (a ragged last tile, PAD
+    mixed in, Protein's 8-bit fields), partition_compact and
+    merge_sorted with 0-2 payloads."""
     rng = np.random.default_rng(100 * L + E)
-    tile = merge._cuda.lib().mg_sort_tile(L)
+    tile = merge._cuda.lib().mg_sort_tile()
     n = 3 * tile + 101
     x = rng.integers(0, 27, (L, n, 4), dtype=np.uint32)   # Protein fields
     lanes = (x[..., 0] << 24) | (x[..., 1] << 16) | (x[..., 2] << 8) | x[..., 3]
@@ -1030,10 +1071,10 @@ def test_row_diff_staged_cuda_equals_cpu(dev, tmp_path, int_form):
 
 @pytest.mark.parametrize("L", [9, 10, 12, 16, 64])
 def test_past_eight_lanes_match_plain(dev, L):
-    """Past the sort kernel's 8 lanes: sort_packed by lane groups (0 and
-    2 payloads), partition_compact in one launch (one count), and the
-    merge's merge-path tiles (|B| << |A| and |A| = |B|, ties and PAD);
-    L = 12 needs the shared-memory opt-in, L = 64 a smaller tile."""
+    """Past 8 lanes: sort_packed (0 and 2 payloads, one launch a call),
+    partition_compact in one launch (one count), and the merge's
+    merge-path tiles (|B| << |A| and |A| = |B|, ties and PAD); L = 12
+    needs the merge's shared-memory opt-in, L = 64 a smaller tile."""
     rng = np.random.default_rng(L)
     n = 50_003
     lanes = rng.integers(0, 1 << 32, (L, n), dtype=np.uint64).astype(
@@ -1064,7 +1105,7 @@ def test_past_eight_lanes_match_plain(dev, L):
         gm = merge.merge_sorted(a, b, (ea,), (eb,))
         wm = merge.merge_sorted_plain(a, b, (ea,), (eb,))
         _same([gm[0], *gm[1]], [wm[0], *wm[1]])
-    assert merge.sort_launches - s0 >= 2 * ((L + 7) // 8)
+    assert merge.sort_launches - s0 == 2
     assert merge.partition_launches - p0 == 2
     assert merge.merge_launches - m0 == 2
 

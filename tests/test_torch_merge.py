@@ -193,12 +193,13 @@ def _wide_keys(rng, L, n, dup=True, pad=0.1):
     return x
 
 
-@pytest.mark.parametrize("L", [9, 10, 16])
+@pytest.mark.parametrize("L", [3, 4, 5, 8, 9, 10, 16])
 @pytest.mark.parametrize("E", [0, 2])
-def test_sort_packed_lane_groups(L, E):
-    """Past 8 lanes sort_packed sorts the lane groups least significant
-    first with the permutation as payload: the plain sort's order,
-    stable, PAD last, the payloads gathered once."""
+def test_sort_packed_any_lane_count(L, E):
+    """sort_packed and lex_order at any lane count (one route, one
+    launch on the card): the plain sort's order, stable, PAD last, the
+    payloads in the same order; the JAX package's sort of the same
+    lanes."""
     rng = np.random.default_rng(L * 3 + E)
     x = T(_wide_keys(rng, L, 3001))
     extras = [torch.arange(3001, dtype=torch.int32), torch.from_numpy(

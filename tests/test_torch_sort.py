@@ -123,6 +123,34 @@ def _radix_emulation(lanes, pays):
     return lanes[:, perm], [p[perm] for p in pays], passes
 
 
+def _index_emulation(lanes, pays):
+    """The CUDA sort's index route on the host: the same histograms and
+    digits, then per digit one stable sort of (lane value, index) pairs
+    by bin, PAD as bin 256 (tested on the lanes in the first pass, known
+    by position after it), a lane's values read through the index in its
+    first pass, and one gather at the end. Returns (lanes, payloads,
+    digits run, lanes read)."""
+    L, n = lanes.shape
+    pad = np.all(lanes == 0xFFFFFFFF, axis=0)
+    n_pad = int(pad.sum())
+    hist = np.stack([np.bincount(
+        (lanes[L - 1 - d // 4][~pad] >> np.uint32(8 * (d % 4))) & 0xFF,
+        minlength=256) for d in range(4 * L)])
+    passes = merge.radix_passes(hist, n_pad)
+    idx = np.arange(n)
+    read = []
+    for i, (d, first, _) in enumerate(merge.index_pass_plan(passes)):
+        if first:
+            val = lanes[L - 1 - d // 4][idx]
+            read.append(L - 1 - d // 4)
+        is_pad = pad if i == 0 else np.arange(n) >= n - n_pad
+        bins = np.where(is_pad, 256, (val >> np.uint32(8 * (d % 4))) & 0xFF)
+        order = torch.sort(torch.from_numpy(bins.astype(np.int64)),
+                           stable=True).indices.numpy()
+        idx, val = idx[order], val[order]
+    return lanes[:, idx], [p[idx] for p in pays], passes, read
+
+
 def _radix_input(kind, L, n, rng):
     """Keys of one shape the pass plan must handle, and the digits it
     must run (None: not checked)."""
@@ -155,6 +183,10 @@ def _radix_input(kind, L, n, rng):
         want = [0, 1, 2, 3]
     elif kind == "random+pad":
         lanes[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+    elif kind == "middle-constant":  # a middle lane no digit reads
+        lanes[L // 2] = 0xFFFFFFFF
+        lanes[:, rng.random(n) < 0.1] = 0xFFFFFFFF
+        want = [d for d in want if d // 4 != L - 1 - L // 2]
     return lanes, want
 
 
@@ -165,26 +197,56 @@ RADIX_CASES = [
     ("top-constant", 4, 1), ("top-constant", 3, 0), ("equal", 2, 1),
     ("equal", 4, 0), ("pad", 1, 2), ("pad", 3, 1), ("equal+pad", 2, 2),
     ("equal+pad", 1, 0), ("ff-key", 2, 1), ("ff-key", 4, 2),
+    # the index route's lane counts
+    ("random+pad", 5, 1), ("random+pad", 9, 2), ("random+pad", 16, 0),
+    ("top-constant", 8, 2), ("top-constant", 9, 1), ("equal", 5, 2),
+    ("equal", 16, 1), ("pad", 8, 0), ("pad", 9, 1), ("equal+pad", 4, 1),
+    ("equal+pad", 16, 2), ("ff-key", 3, 2), ("ff-key", 9, 0),
+    ("middle-constant", 3, 1), ("middle-constant", 5, 0),
+    ("middle-constant", 9, 2), ("middle-constant", 16, 1),
 ]
 
 
 @pytest.mark.parametrize("kind,L,E", RADIX_CASES)
 def test_radix_pass_plan_matches_jax_sort(kind, L, E):
     """The radix sort's plan (``merge.radix_passes`` over the digit
-    histograms, PAD as bin 256) run as stable sorts by bin equals the JAX
-    package's stable ``packed.sort`` bit for bit, payloads included, and
-    runs exactly the digits on which the keys differ."""
+    histograms, PAD as bin 256) run as stable sorts by bin, by both
+    routes (every lane and payload a pass; (value, index) pairs a lane
+    at a time, then one gather), equals the JAX package's stable
+    ``packed.sort`` bit for bit, payloads included, and runs exactly the
+    digits on which the keys differ; the index route reads only the
+    lanes with a digit to run."""
     rng = np.random.default_rng(sum(map(ord, kind)) + 10 * L + E)
     n = 3001
     lanes, want_passes = _radix_input(kind, L, n, rng)
     pays = [rng.integers(-2**31, 2**31, n).astype(np.int32) for _ in range(E)]
-    got, gps, passes = _radix_emulation(lanes, pays)
-    assert passes == want_passes
     want, wps = jpacked.sort(jnp.asarray(lanes),
                              *[jnp.asarray(p) for p in pays])
-    np.testing.assert_array_equal(got, np.asarray(want))
-    for g, w in zip(gps, wps):
-        np.testing.assert_array_equal(g, np.asarray(w))
+    got, gps, passes = _radix_emulation(lanes, pays)
+    got_i, gps_i, passes_i, read = _index_emulation(lanes, pays)
+    assert passes == passes_i == want_passes
+    assert read == sorted({L - 1 - d // 4 for d in passes}, reverse=True)
+    for g, gp in ((got, gps), (got_i, gps_i)):
+        np.testing.assert_array_equal(g, np.asarray(want))
+        for a, w in zip(gp, wps):
+            np.testing.assert_array_equal(a, np.asarray(w))
+
+
+def test_sort_route_rule():
+    """The lanes route below the measured crossover, the index route
+    from it on, for any lane count; a lane's first and last pass in the
+    index route's plan."""
+    for E in (0, 1, 2):
+        for L in (1, 2):
+            assert merge.sort_route(L, E) == "lanes"
+        for L in (4, 5, 8, 9, 13, 16, 64, 1000):
+            assert merge.sort_route(L, E) == "index"
+    assert merge.sort_route(3, 0) == merge.sort_route(3, 1) == "lanes"
+    assert merge.sort_route(3, 2) == "index"
+    assert merge.index_pass_plan([0, 1, 3, 6, 12, 13]) == [
+        (0, True, False), (1, False, False), (3, False, True),
+        (6, True, True), (12, True, False), (13, False, True)]
+    assert merge.index_pass_plan([]) == []
 
 
 @pytest.mark.parametrize("n", [0, 1])
