@@ -36,6 +36,7 @@ import torch
 from ..common import device as devmod
 from ..common import merge as pmerge
 from ..common import packed
+from ..common import telemetry
 from .matrix import RowHits, RowSparse, expand_ranges, host_tensor
 
 
@@ -138,29 +139,30 @@ class Brwt(RowHits):
     def row_hits(self, rows: torch.Tensor):
         """(query index, column, 1) int64 of every set bit of the given
         rows, by the level descent."""
-        word_off, column, child_lo, child_hi = self._dev
-        q = torch.arange(rows.shape[0], device=self.device)
-        node = torch.zeros_like(q)
-        local = rows.to(torch.int64)
-        W = self.words.shape[0]
-        hq, hc = [q[:0]], [q[:0]]
-        while q.numel():
-            wi = torch.clamp(word_off[node] + (local >> 5), 0, W - 1)
-            word = packed.as_uint(self.words[wi])
-            bitpos = local & 31
-            live = ((word >> bitpos) & 1) == 1
-            rank = self.brank[wi].to(torch.int64) + packed.popcount32(
-                word & ((1 << bitpos) - 1))
-            col = column[node]
-            leaf = live & (col >= 0)
-            hq.append(q[leaf])
-            hc.append(col[leaf])
-            spawn = live & (col < 0)
-            q, node, rank = q[spawn], node[spawn], rank[spawn]
-            owner, child = expand_ranges(child_lo[node], child_hi[node])
-            q, node, local = q[owner], child, rank[owner]
-        q = torch.cat(hq)
-        return q, torch.cat(hc), torch.ones_like(q)
+        with telemetry.span("anno.descent", quiet=True):
+            word_off, column, child_lo, child_hi = self._dev
+            q = torch.arange(rows.shape[0], device=self.device)
+            node = torch.zeros_like(q)
+            local = rows.to(torch.int64)
+            W = self.words.shape[0]
+            hq, hc = [q[:0]], [q[:0]]
+            while q.numel():
+                wi = torch.clamp(word_off[node] + (local >> 5), 0, W - 1)
+                word = packed.as_uint(self.words[wi])
+                bitpos = local & 31
+                live = ((word >> bitpos) & 1) == 1
+                rank = self.brank[wi].to(torch.int64) + packed.popcount32(
+                    word & ((1 << bitpos) - 1))
+                col = column[node]
+                leaf = live & (col >= 0)
+                hq.append(q[leaf])
+                hc.append(col[leaf])
+                spawn = live & (col < 0)
+                q, node, rank = q[spawn], node[spawn], rank[spawn]
+                owner, child = expand_ranges(child_lo[node], child_hi[node])
+                q, node, local = q[owner], child, rank[owner]
+            q = torch.cat(hq)
+            return q, torch.cat(hc), torch.ones_like(q)
 
     # -- serialization -----------------------------------------------------
 

@@ -33,10 +33,16 @@ import torch
 
 from ..common import merge as pmerge
 from ..common import packed
+from ..common import telemetry
 from ..graph.traversal import in_chunks, rank_chains
 from .matrix import RowHits, RowSparse, expand_ranges, host_tensor
 
 DEFAULT_MAX_LENGTH = 64
+
+# nodes on every walk of ``walk_paths`` since import (its (query, node)
+# records), counted from the sizes the walk's masked steps already bring
+# to the host
+walk_nodes = 0
 
 
 # ---------------------------------------------------------------------------
@@ -268,14 +274,18 @@ def walk_paths(anchor: torch.Tensor, succ: torch.Tensor, rows: torch.Tensor,
     """(query index, node, depth) int64 of every node on each row's walk:
     the row, then successor after successor until an anchor, a row
     without successor, or ``max_length + 1`` nodes."""
+    global walk_nodes
     dev = rows.device
     q = torch.arange(rows.shape[0], device=dev)
     cur = rows.to(torch.int64)
     nmax = anchor.shape[0] - 1
     qs, nodes, depths = [q[:0]], [q[:0]], [q[:0]]
+    walked = 0
     for d in range(max_length + 1):
-        if not q.numel():
+        n = q.numel()
+        if not n:
             break
+        walked += n
         qs.append(q)
         nodes.append(cur)
         depths.append(torch.full_like(q, d))
@@ -283,6 +293,7 @@ def walk_paths(anchor: torch.Tensor, succ: torch.Tensor, rows: torch.Tensor,
         nxt = succ[curc]
         go = ~anchor[curc] & (nxt >= 0)
         q, cur = q[go], nxt[go]
+    walk_nodes += walked
     return torch.cat(qs), torch.cat(nodes), torch.cat(depths)
 
 
@@ -293,13 +304,14 @@ def fold_hits(C: int, q, col, vals=None):
     through ``odd_keys`` / ``_summed_keys`` (the sort and partition
     kernels)."""
     C = max(C, 1)
-    keys = q * C + col
-    if vals is None:
-        keys = _lane_keys(odd_keys(_key_lanes(keys)))
-        vals = torch.ones_like(keys)
-    else:
-        keys, vals = _summed_keys(keys, vals)
-    return keys // C, keys % C, vals
+    with telemetry.span("anno.fold", quiet=True):
+        keys = q * C + col
+        if vals is None:
+            keys = _lane_keys(odd_keys(_key_lanes(keys)))
+            vals = torch.ones_like(keys)
+        else:
+            keys, vals = _summed_keys(keys, vals)
+        return keys // C, keys % C, vals
 
 
 def _npz_walk(d: dict, prefix: str, anchor, succ, max_length: int,
@@ -332,7 +344,8 @@ class _Walked(RowHits):
         return int(self.anchor.sum())
 
     def _walk(self, rows):
-        return walk_paths(self.anchor, self.succ, rows, self.max_length)
+        with telemetry.span("anno.walk", quiet=True):
+            return walk_paths(self.anchor, self.succ, rows, self.max_length)
 
 
 @dataclass

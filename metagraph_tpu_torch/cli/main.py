@@ -19,9 +19,10 @@ port covers; stdout is byte for byte that of the JAX CLI. Every command
 takes ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of
 the kernels), the global ``-v`` and ``--debug`` (the telemetry spans on
 stderr; ``METAGRAPH_TPU_TRACE_DIR`` set: a ``torch.profiler`` trace of
-the command there), ``-p``, and the JAX CLI's inert reference options (a warning
-names each one set). Any other flag exits non-zero with "not yet
-ported".
+the command there, which also turns on the library's spans, so the
+build's and the label query's stages are ranges of it), ``-p``, and the
+JAX CLI's inert reference options (a warning names each one set). Any
+other flag exits non-zero with "not yet ported".
 
     python -m metagraph_tpu_torch.cli.main build -k 31 -o graph a.fa b.fa
     find . -name "*.fa" | python -m metagraph_tpu_torch.cli.main build -k 31

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..anno.annotator import Annotation, ColumnAnnotator
+from ..common import telemetry
 from ..graph.dbg_succinct import DbgSuccinct, map_sequences
 
 # present windows per row_hits call: bounds a batch's temporaries (its
@@ -174,17 +175,18 @@ class BatchQuery:
         """Returns (rows (W,) int64 anno rows, -1 = absent; read_id (W,);
         windows per read (R,))."""
         g = self.adbg.graph
-        if (getattr(g, "boss", None) is not None
-                and g.boss.edge_lanes is None):
-            # small state: the incremental walk (O(1) rank/select calls per
-            # window) in place of the flat k-step search per window
-            per = g.map_read_batch(list(seqs))
-        else:
-            per = map_sequences(g, seqs)
-        wpr = np.array([len(nodes) for nodes in per], np.int64)
-        nodes = np.concatenate(per + [np.zeros(0, np.int64)])
-        return (np.where(nodes > 0, g.node_to_anno_row(nodes), -1),
-                np.repeat(np.arange(len(per), dtype=np.int64), wpr), wpr)
+        with telemetry.span("map", quiet=True):
+            if (getattr(g, "boss", None) is not None
+                    and g.boss.edge_lanes is None):
+                # small state: the incremental walk (O(1) rank/select calls
+                # per window) in place of the flat k-step search per window
+                per = g.map_read_batch(list(seqs))
+            else:
+                per = map_sequences(g, seqs)
+            wpr = np.array([len(nodes) for nodes in per], np.int64)
+            nodes = np.concatenate(per + [np.zeros(0, np.int64)])
+            return (np.where(nodes > 0, g.node_to_anno_row(nodes), -1),
+                    np.repeat(np.arange(len(per), dtype=np.int64), wpr), wpr)
 
     def _present(self, seqs: Sequence[bytes]):
         """_map_batch plus (present mask (W,), present windows per read)."""
@@ -211,14 +213,15 @@ class BatchQuery:
         ``index_add_`` per chunk keyed by read and label."""
         m = self.adbg.annotation.matrix
         C = m.num_cols
-        rid = torch.from_numpy(read_ids[present]).to(m.device)
-        outs = [torch.zeros((num_reads * C,), dtype=torch.int64,
-                            device=m.device) for _ in weights]
-        for w, c, v in self._window_hits(rows, present):
-            key = rid[w] * C + c
-            for out, weight in zip(outs, weights):
-                out.index_add_(0, key, weight(v))
-        return [out.view(num_reads, C).cpu().numpy() for out in outs]
+        with telemetry.span("sums", quiet=True):
+            rid = torch.from_numpy(read_ids[present]).to(m.device)
+            outs = [torch.zeros((num_reads * C,), dtype=torch.int64,
+                                device=m.device) for _ in weights]
+            for w, c, v in self._window_hits(rows, present):
+                key = rid[w] * C + c
+                for out, weight in zip(outs, weights):
+                    out.index_add_(0, key, weight(v))
+            return [out.view(num_reads, C).cpu().numpy() for out in outs]
 
     def _counts(self, rows, read_ids, present, num_reads: int) -> np.ndarray:
         """(R, C) per-read label k-mer counts of mapped windows."""
@@ -238,20 +241,25 @@ class BatchQuery:
         min_count)."""
         counts, wpr, n_present = self.label_count_matrix(seqs)
         out = []
-        for r, s in enumerate(seqs):
-            min_count = max(1, math.ceil(presence_ratio * wpr[r]))
-            if len(s) < self.adbg.graph.k or n_present[r] < min_count:
-                out.append(None)
-            else:
-                out.append((counts[r], min_count))
+        with telemetry.span("select", quiet=True):
+            for r, s in enumerate(seqs):
+                min_count = max(1, math.ceil(presence_ratio * wpr[r]))
+                if len(s) < self.adbg.graph.k or n_present[r] < min_count:
+                    out.append(None)
+                else:
+                    out.append((counts[r], min_count))
         return out
 
     def get_labels_batch(self, seqs: Sequence[bytes],
                          presence_ratio: float = 0.0) -> List[List[str]]:
         enc = self.adbg.annotation.encoder
-        return [[] if sel is None else
-                [enc.decode(c) for c in np.nonzero(sel[0] >= sel[1])[0]]
-                for sel in self._selected(seqs, presence_ratio)]
+        with telemetry.span("query", quiet=True):
+            selected = self._selected(seqs, presence_ratio)
+            with telemetry.span("select", quiet=True):
+                return [[] if sel is None else
+                        [enc.decode(c)
+                         for c in np.nonzero(sel[0] >= sel[1])[0]]
+                        for sel in selected]
 
     def get_top_labels_batch(self, seqs: Sequence[bytes],
                              num_top_labels: int = 2 ** 62,

@@ -47,6 +47,7 @@ import torch
 from ..common import device as devmod
 from ..common import merge as pmerge
 from ..common import packed
+from ..common import telemetry
 from ..kmer import packing
 from ..kmer.alphabets import Alphabet, DNA, INVALID_CODE
 from ..kmer.extractor import (encode_sequences, extract_packed_kmers,
@@ -229,34 +230,37 @@ def collect_kmers(seqs: Sequence[bytes | str], K: int,
     Returns (sorted unique lanes (L, max(n, 1)), counts, n, bounds), with
     ``bounds`` the (sink, source) dummy-candidate node keys, or None
     without ``with_bounds``."""
-    dev = devmod.resolve(device)
-    suffix = tuple(suffix)
-    with_bounds = with_bounds and not suffix
-    codes_np = (encode_sequences(seqs, alphabet) if extra_codes is None
-                else np.asarray(extra_codes, np.uint8))
-    if codes_np.shape[0] < K:
-        codes_np = np.concatenate(
-            [codes_np, np.full(K - codes_np.shape[0], INVALID_CODE,
-                               np.uint8)])
-    bound_pos = None
-    if with_bounds:
-        # the codes window_validity rejects: INVALID and the sentinel
-        inval = np.flatnonzero((codes_np == INVALID_CODE) | (codes_np == 0))
-        bound_pos = tuple(torch.from_numpy(p).to(dev) for p in
-                          host_boundary_windows(inval, codes_np.shape[0], K))
-    codes = torch.from_numpy(codes_np).to(dev)
-    if suffix:
-        ulanes, ucounts, ucount, bounds = _collect_bbit(
-            codes, K, alphabet.bits_per_char, canonical, alphabet.complement,
-            suffix=suffix)
-    else:
-        collect = _collect if _two_bit(alphabet) else _collect_bbit
-        ulanes, ucounts, ucount, bounds = collect(
-            codes, K, alphabet.bits_per_char, canonical,
-            alphabet.complement, bound_pos)
-    n_u = int(ucount)                       # the collect's one host sync
-    cap = max(n_u, 1)
-    return ulanes[:, :cap], ucounts[:cap], n_u, bounds
+    with telemetry.span("collect", quiet=True):
+        dev = devmod.resolve(device)
+        suffix = tuple(suffix)
+        with_bounds = with_bounds and not suffix
+        codes_np = (encode_sequences(seqs, alphabet) if extra_codes is None
+                    else np.asarray(extra_codes, np.uint8))
+        if codes_np.shape[0] < K:
+            codes_np = np.concatenate(
+                [codes_np, np.full(K - codes_np.shape[0], INVALID_CODE,
+                                   np.uint8)])
+        bound_pos = None
+        if with_bounds:
+            # the codes window_validity rejects: INVALID and the sentinel
+            inval = np.flatnonzero((codes_np == INVALID_CODE)
+                                   | (codes_np == 0))
+            bound_pos = tuple(
+                torch.from_numpy(p).to(dev) for p in
+                host_boundary_windows(inval, codes_np.shape[0], K))
+        codes = torch.from_numpy(codes_np).to(dev)
+        if suffix:
+            ulanes, ucounts, ucount, bounds = _collect_bbit(
+                codes, K, alphabet.bits_per_char, canonical,
+                alphabet.complement, suffix=suffix)
+        else:
+            collect = _collect if _two_bit(alphabet) else _collect_bbit
+            ulanes, ucounts, ucount, bounds = collect(
+                codes, K, alphabet.bits_per_char, canonical,
+                alphabet.complement, bound_pos)
+        n_u = int(ucount)                   # the collect's one host sync
+        cap = max(n_u, 1)
+        return ulanes[:, :cap], ucounts[:cap], n_u, bounds
 
 
 def collect_counted_kmers(chars: np.ndarray, counts: np.ndarray, K: int,
@@ -566,10 +570,12 @@ def _emit_body(merged, counts, n_total, K: int, B: int, alph_size: int,
 
 
 def _finish_stage_bounds(real, counts, n_real, sink_cand, src_cand,
-                         K: int, B: int, alph_size: int, max_count: int,
-                         canonical: bool, complement):
-    """Everything after collection: rc closure (canonical), dummy probes,
-    levels, merge, emit and the search table."""
+                         K: int, B: int, alph_size: int, canonical: bool,
+                         complement):
+    """The dummies with boundary candidates: rc closure (canonical), then
+    the dummy probes. Returns (real, counts, n_real, sinks, n_sinks, src,
+    n_src): the dummy sinks and dummy-1 sources each sorted, with a PAD
+    tail."""
     if canonical:
         real, counts, n_real = _add_rc_stage(real, counts, n_real, K, B,
                                              complement)
@@ -584,41 +590,31 @@ def _finish_stage_bounds(real, counts, n_real, sink_cand, src_cand,
         src_cand = torch.cat([src_c, rc_masked(tgt_c)], dim=1)
     sinks, n_sinks, src, n_src = _probe_dummies(
         real_m, sink_cand, src_cand, K, B, alph_size)
-    return _finish_tail(real, counts, n_real, sinks, n_sinks, src, n_src, K,
-                        B, alph_size, max_count, skip_redundant_sinks=False)
+    return real, counts, n_real, sinks, n_sinks, src, n_src
 
 
-def _finish_stage(real, counts, n_real, K: int, B: int, alph_size: int,
-                  max_count: int, canonical: bool, complement):
-    """Everything after collection without boundary candidates: rc
-    closure (canonical), the dummy sinks and sources from all real edges,
-    then ``_finish_tail``, dropping redundant sinks at emit."""
+def _finish_stage(real, counts, n_real, K: int, B: int, canonical: bool,
+                  complement):
+    """The dummies without boundary candidates: rc closure (canonical),
+    then the dummy sinks and sources from all real edges (redundant sinks
+    are dropped at emit). Returns what ``_finish_stage_bounds`` does."""
     if canonical:
         real, counts, n_real = _add_rc_stage(real, counts, n_real, K, B,
                                              complement)
     sinks, n_sinks = _sink_candidates(real, n_real, K, B)
     src, n_src = _source_candidates(real, n_real, K, B)
-    return _finish_tail(real, counts, n_real, sinks, n_sinks, src, n_src, K,
-                        B, alph_size, max_count, skip_redundant_sinks=True)
+    return real, counts, n_real, sinks, n_sinks, src, n_src
 
 
-def _finish_tail(real, counts, n_real, sinks, n_sinks, src, n_src, K: int,
-                 B: int, alph_size: int, max_count: int,
-                 skip_redundant_sinks: bool):
-    """Levels, merge, emit and the search table from the dummy sinks and
-    dummy-1 sources (each sorted, with a PAD tail). One host sync sizes
-    both sets, so the dummy side carries no PAD."""
-    ns, nr = torch.stack([n_sinks, n_src]).tolist()
-    src = src[:, :nr]
-    parts = [sinks[:, :ns], src] + _levels_phase(src, K, B)
-    n_levels_total = sum(p.shape[1] for p in parts[2:])
+def _finish_tail(real, counts, n_real, parts, K: int, B: int,
+                 alph_size: int, max_count: int, skip_redundant_sinks: bool):
+    """Merge, emit and the search table from the dummy side (``parts``:
+    the sinks, the dummy-1 sources and the levels, without PAD)."""
     kept, n_kept, W, last, F, weights = _merge_emit_body(
         real, counts, n_real, parts, K, B, alph_size, max_count,
         skip_redundant_sinks)
     lut, max_bucket = _build_lut(kept, n_kept)     # the search table
-    dev = kept.device
-    stats = torch.stack([_i32(x, dev) for x in (
-        n_kept, ns, nr, n_levels_total, n_real, max_bucket)])
+    stats = torch.stack([_i32(x, kept.device) for x in (n_kept, max_bucket)])
     return kept, W, last, F, weights, lut, stats
 
 
@@ -644,25 +640,38 @@ def build_boss_from_kmers(real, counts, n_real: int, K: int,
     come from probes of the candidates, else from sorts over all real
     edges. ``mode`` canonical adds the reverse-complement closure; any
     other mode builds the graph of the k-mers as given."""
-    _check_mode(mode, alphabet)
-    B = alphabet.bits_per_char
-    max_count = (1 << bits_per_count) - 1 if bits_per_count else (1 << 31) - 1
-    n = _i32(n_real, real.device)
-    canonical = mode == MODE_CANONICAL
-    if bounds is None:
-        kept, W, last, F, weights, lut, stats = _finish_stage(
-            real, counts, n, K, B, alphabet.size, max_count, canonical,
-            alphabet.complement)
-    else:
-        kept, W, last, F, weights, lut, stats = _finish_stage_bounds(
-            real, counts, n, *bounds, K, B, alphabet.size, max_count,
-            canonical, alphabet.complement)
-    stats = stats.cpu().numpy()              # the finish's last host sync
-    return Boss.from_finish(
-        k=K - 1, alph_size=alphabet.size, bits_per_char=B,
-        kept=kept, W=W, last=last, F=F, n_kept=int(stats[0]),
-        weights=weights if bits_per_count else None, lut=lut,
-        max_bucket=int(stats[5]))
+    with telemetry.span("finish", quiet=True):
+        _check_mode(mode, alphabet)
+        B = alphabet.bits_per_char
+        max_count = ((1 << bits_per_count) - 1 if bits_per_count
+                     else (1 << 31) - 1)
+        canonical = mode == MODE_CANONICAL
+        with telemetry.span("finish.dummies", quiet=True):
+            n = _i32(n_real, real.device)
+            if bounds is None:
+                real, counts, n, sinks, n_sinks, src, n_src = _finish_stage(
+                    real, counts, n, K, B, canonical, alphabet.complement)
+            else:
+                real, counts, n, sinks, n_sinks, src, n_src = (
+                    _finish_stage_bounds(real, counts, n, *bounds, K, B,
+                                         alphabet.size, canonical,
+                                         alphabet.complement))
+            # one host sync sizes both sets: the dummy side carries no PAD
+            ns, nr = torch.stack([n_sinks, n_src]).tolist()
+        with telemetry.span("finish.levels", quiet=True):
+            src = src[:, :nr]
+            parts = [sinks[:, :ns], src] + _levels_phase(src, K, B)
+        del sinks, src          # their buffers go once the emit joins them
+        with telemetry.span("finish.emit", quiet=True):
+            kept, W, last, F, weights, lut, stats = _finish_tail(
+                real, counts, n, parts, K, B, alphabet.size, max_count,
+                skip_redundant_sinks=bounds is None)
+            stats = stats.cpu().numpy()      # the finish's last host sync
+            return Boss.from_finish(
+                k=K - 1, alph_size=alphabet.size, bits_per_char=B,
+                kept=kept, W=W, last=last, F=F, n_kept=int(stats[0]),
+                weights=weights if bits_per_count else None, lut=lut,
+                max_bucket=int(stats[1]))
 
 
 def build_boss_from_codes(codes_np: np.ndarray, k: int,
@@ -690,11 +699,12 @@ def _build(seqs, codes_np, k: int, alphabet: Alphabet, mode: str,
     windows no longer bound the dummy sets, so it takes the finish
     without candidates (as does a suffix bucket)."""
     _check_mode(mode, alphabet)
-    ulanes, ucounts, n_u, bounds = collect_kmers(
-        seqs, k, alphabet, canonical=mode != MODE_BASIC,
-        extra_codes=codes_np, device=device,
-        with_bounds=mode != MODE_PRIMARY, suffix=suffix)
-    return build_boss_from_kmers(
-        ulanes, ucounts, n_u, k, alphabet,
-        mode=MODE_CANONICAL if mode == MODE_CANONICAL else MODE_BASIC,
-        bits_per_count=bits_per_count, bounds=bounds)
+    with telemetry.span("build", quiet=True):
+        ulanes, ucounts, n_u, bounds = collect_kmers(
+            seqs, k, alphabet, canonical=mode != MODE_BASIC,
+            extra_codes=codes_np, device=device,
+            with_bounds=mode != MODE_PRIMARY, suffix=suffix)
+        return build_boss_from_kmers(
+            ulanes, ucounts, n_u, k, alphabet,
+            mode=MODE_CANONICAL if mode == MODE_CANONICAL else MODE_BASIC,
+            bits_per_count=bits_per_count, bounds=bounds)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..common import packed
+from ..common import telemetry
 from ..common.ranksel import BitRank
 from ..kmer import packing
 from ..kmer.alphabets import Alphabet, DNA
@@ -399,9 +400,13 @@ def map_sequences(graph, seqs) -> list:
             j += 1
         batch = seqs[i:j]
         codes = encode_sequences(batch, graph.alphabet)
-        nodes = (graph.map_codes_to_nodes(torch.from_numpy(codes).to(
-            graph.device)).cpu().numpy().astype(np.int32)
-            if len(codes) >= k else np.zeros(0, np.int32))
+        if len(codes) >= k:
+            with telemetry.span("map.search", quiet=True):
+                found = graph.map_codes_to_nodes(
+                    torch.from_numpy(codes).to(graph.device)).cpu()
+            nodes = found.numpy().astype(np.int32)
+        else:
+            nodes = np.zeros(0, np.int32)
         off = 0
         for s in batch:
             out.append(nodes[off:off + max(0, len(s) - k + 1)])

@@ -2,15 +2,18 @@
 
 ``span`` prints the JAX package's stderr line (one format, the same
 numbers' places) when verbose or counting items, and nothing otherwise;
-``span_totals``, ``Timer``, ``get_curr_rss`` and ``device_trace``
+with ``TRACING`` on it records (``recorded``; tests/test_torch_trace.py
+covers the recorder); ``Timer``, ``get_curr_rss`` and ``device_trace``
 (a ``torch.profiler`` trace where the JAX package writes a
 ``jax.profiler`` one; the CLI writes one of its command where
-``METAGRAPH_TPU_TRACE_DIR`` says). Through the CLI, ``-v`` prints the JAX CLI's span
+``METAGRAPH_TPU_TRACE_DIR`` says, the library's spans among its
+ranges). Through the CLI, ``-v`` prints the JAX CLI's span
 names for ``build`` and ``align`` (and its out-of-core build the names
 the JAX CLI's code gives), and stdout is byte for byte the same with and
 without it, and the JAX CLI's.
 """
 
+import collections
 import os
 import re
 
@@ -42,9 +45,14 @@ def span_names(err: str) -> list:
 @pytest.fixture
 def quiet(monkeypatch):
     """Both packages' spans off unless a test turns them on (the JAX
-    CLI's -v leaves its flag set for the process)."""
+    CLI's -v leaves its flag set for the process); the port's recorder
+    off, its buffer fresh."""
     monkeypatch.setattr(jtel, "VERBOSE", False)
     monkeypatch.setattr(telemetry, "VERBOSE", False)
+    monkeypatch.setattr(telemetry, "TRACING", False)
+    monkeypatch.setattr(telemetry, "_records",
+                        collections.deque(maxlen=telemetry.RECORDS_MAX))
+    monkeypatch.setattr(telemetry, "_dropped", 0)
 
 
 @pytest.mark.parametrize("verbose,items", [(False, None), (False, 1000),
@@ -65,11 +73,17 @@ def test_span_line_as_jax(quiet, capsys, verbose, items):
 
 
 def test_span_totals_timer_rss(quiet):
-    before = telemetry.span_totals().get("totals_test", 0.0)
+    for _ in range(2):                   # off: a silent span records nothing
+        with telemetry.span("totals_test"):
+            sum(range(1000))
+    assert telemetry.recorded() == ([], 0)
+    telemetry.TRACING = True
     for _ in range(2):
         with telemetry.span("totals_test"):
             sum(range(1000))
-    assert telemetry.span_totals()["totals_test"] > before
+    recs, dropped = telemetry.recorded()
+    assert [r.name for r in recs] == ["totals_test"] * 2 and dropped == 0
+    assert sum(r.self_s for r in recs) > 0
     t = telemetry.Timer()
     assert t.elapsed() >= 0
     t.reset()
@@ -83,6 +97,7 @@ def test_device_trace_and_record_function(quiet, tmp_path, monkeypatch):
         pass
     assert not os.listdir(tmp_path)
     monkeypatch.setattr(telemetry, "_TRACE_DIR", str(tmp_path))
+    monkeypatch.setattr(telemetry, "TRACING", True)     # as the variable
     with telemetry.device_trace():
         with telemetry.span("traced_span"):
             torch.ones(8).sum()
@@ -93,14 +108,17 @@ def test_device_trace_and_record_function(quiet, tmp_path, monkeypatch):
 
 def test_cli_trace_dir(quiet, fasta, tmp_path, monkeypatch):
     """METAGRAPH_TPU_TRACE_DIR: the command runs inside ``device_trace``,
-    its spans ranges of the trace."""
+    its spans ranges of the trace, the library's (which the variable
+    turns on with the trace) among them."""
     monkeypatch.setattr(telemetry, "_TRACE_DIR", str(tmp_path))
+    monkeypatch.setattr(telemetry, "TRACING", True)     # as the variable
     tmain(["build", "-k", "11", "-o", str(fasta / "tr"),
            str(fasta / "in.fa"), "--device", "cpu"])
     traces = os.listdir(tmp_path)
     assert len(traces) == 1 and traces[0].endswith(".json")
     text = (tmp_path / traces[0]).read_text()
     assert '"construct"' in text and '"serialize"' in text
+    assert '"collect"' in text and '"finish.levels"' in text
 
 
 @pytest.fixture(scope="module")
