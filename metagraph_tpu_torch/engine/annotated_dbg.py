@@ -25,8 +25,12 @@ semantics are the reference's:
 The annotation may be any representation of ``anno/``: each gives the
 sparse entries of the present windows' rows (``row_hits``, the anchor
 walks and BRWT descents included), decoded a bounded number of windows
-at a time, and those are summed per read on the device. The per-read
-selection and formatting run on the host, in the JAX package's order of
+at a time, and those are summed per read on the device. The label and
+top-label queries also select on the device: each read's counts are
+compared with its min_count there, and only the (read, label) pairs that
+pass come to the host, where the label lists are sliced from them by
+per-read offsets. The other modes copy the whole (reads x labels)
+matrix and select per read on the host, in the JAX package's order of
 operations. ``AnnotatedDbg``'s per-sequence calls (``get_labels``,
 ``get_top_labels``, ``get_top_label_signatures``,
 ``get_label_count_quantiles``, ``get_kmer_coordinates``) are one-read
@@ -49,6 +53,11 @@ from ..graph.dbg_succinct import DbgSuccinct, map_sequences
 # present windows per row_hits call: bounds a batch's temporaries (its
 # entries, anchor walks and descents) whatever the batch's size
 _CHUNK = 1 << 20
+
+# (read, label) pairs the device selection brought to the host since
+# import (``BatchQuery._selected``): the labels of the label queries'
+# answers before any top-labels cut
+select_pairs = 0
 
 
 @dataclass
@@ -82,7 +91,7 @@ class AnnotatedDbg:
         JAX package fails too."""
         bq = BatchQuery(self)
         if with_kmer_counts and not self.annotation.matrix.has_values:
-            if bq._selected(_one(sequence), presence_ratio)[0] is not None:
+            if bq._selected(_one(sequence), presence_ratio).passes[0]:
                 raise ValueError("with_kmer_counts needs a count "
                                  "annotation (annotate --count-kmers)")
             return []
@@ -188,14 +197,6 @@ class BatchQuery:
             return (np.where(nodes > 0, g.node_to_anno_row(nodes), -1),
                     np.repeat(np.arange(len(per), dtype=np.int64), wpr), wpr)
 
-    def _present(self, seqs: Sequence[bytes]):
-        """_map_batch plus (present mask (W,), present windows per read)."""
-        rows, read_ids, wpr = self._map_batch(seqs)
-        present = rows >= 0
-        n_present = np.zeros(len(seqs), np.int64)
-        np.add.at(n_present, read_ids[present], 1)
-        return rows, read_ids, wpr, present, n_present
-
     def _window_hits(self, rows, present):
         """(index into the present windows, column, value) int64 device
         tensors of every entry of the present windows' rows (value 1 in a
@@ -207,59 +208,71 @@ class BatchQuery:
             yield q + s, c, v
 
     def _read_sums(self, rows, read_ids, present, num_reads: int,
-                   *weights) -> List[np.ndarray]:
-        """Per weight (a function of the entries' values), the (R, C)
-        per-read sums of it over the present windows' entries: one
-        ``index_add_`` per chunk keyed by read and label."""
+                   *weights) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The present windows per read (R,), and per weight (a function
+        of the entries' values) the (R, C) per-read sums of it over the
+        present windows' entries: int64 tensors on the matrix's device,
+        one ``index_add_`` per chunk keyed by read and label."""
         m = self.adbg.annotation.matrix
         C = m.num_cols
         with telemetry.span("sums", quiet=True):
             rid = torch.from_numpy(read_ids[present]).to(m.device)
+            n_present = torch.zeros(num_reads, dtype=torch.int64,
+                                    device=m.device)
+            n_present.index_add_(0, rid, torch.ones_like(rid))
             outs = [torch.zeros((num_reads * C,), dtype=torch.int64,
                                 device=m.device) for _ in weights]
             for w, c, v in self._window_hits(rows, present):
                 key = rid[w] * C + c
                 for out, weight in zip(outs, weights):
                     out.index_add_(0, key, weight(v))
-            return [out.view(num_reads, C).cpu().numpy() for out in outs]
-
-    def _counts(self, rows, read_ids, present, num_reads: int) -> np.ndarray:
-        """(R, C) per-read label k-mer counts of mapped windows."""
-        return self._read_sums(rows, read_ids, present, num_reads,
-                               torch.ones_like)[0]
+            return n_present, [out.view(num_reads, C) for out in outs]
 
     def label_count_matrix(self, seqs: Sequence[bytes]
                            ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """((R, num_labels) per-read label k-mer counts, (R,) windows
         per read, (R,) present windows per read)."""
-        rows, read_ids, wpr, present, n_present = self._present(seqs)
-        return (self._counts(rows, read_ids, present, len(seqs)), wpr,
-                n_present)
+        rows, read_ids, wpr = self._map_batch(seqs)
+        n_present, (counts,) = self._read_sums(
+            rows, read_ids, rows >= 0, len(seqs), torch.ones_like)
+        return counts.cpu().numpy(), wpr, n_present.cpu().numpy()
 
-    def _selected(self, seqs, presence_ratio):
-        """Per read: None if it reports nothing, else (counts row,
-        min_count)."""
-        counts, wpr, n_present = self.label_count_matrix(seqs)
-        out = []
+    def _selected(self, seqs, presence_ratio) -> _Selection:
+        """The (read, label) pairs with count >= the read's min_count,
+        selected on the device; only they come to the host. A read
+        shorter than k has no windows, so none present: it never
+        passes."""
+        global select_pairs
+        rows, read_ids, wpr = self._map_batch(seqs)
+        n_present, (counts,) = self._read_sums(
+            rows, read_ids, rows >= 0, len(seqs), torch.ones_like)
         with telemetry.span("select", quiet=True):
-            for r, s in enumerate(seqs):
-                min_count = max(1, math.ceil(presence_ratio * wpr[r]))
-                if len(s) < self.adbg.graph.k or n_present[r] < min_count:
-                    out.append(None)
-                else:
-                    out.append((counts[r], min_count))
-        return out
+            # float64, the same product as math.ceil(ratio * wpr[r])
+            min_count = torch.from_numpy(np.maximum(
+                1, np.ceil(presence_ratio * wpr)).astype(np.int64)).to(
+                    counts.device)
+            passes = n_present >= min_count
+            hit = (counts >= min_count[:, None]) & passes[:, None]
+            r, c = hit.nonzero().unbind(1)      # by read, then label code
+            n = r.shape[0]
+            flat = torch.cat([r, c, counts[r, c],
+                              passes.to(torch.int64)]).cpu().numpy()
+            select_pairs += n
+            return _Selection(
+                offsets=np.searchsorted(flat[:n],
+                                        np.arange(len(seqs) + 1)).tolist(),
+                codes=flat[n:2 * n], counts=flat[2 * n:3 * n],
+                passes=flat[3 * n:] > 0)
 
     def get_labels_batch(self, seqs: Sequence[bytes],
                          presence_ratio: float = 0.0) -> List[List[str]]:
-        enc = self.adbg.annotation.encoder
+        labels = self.adbg.annotation.encoder.labels
         with telemetry.span("query", quiet=True):
-            selected = self._selected(seqs, presence_ratio)
+            sel = self._selected(seqs, presence_ratio)
             with telemetry.span("select", quiet=True):
-                return [[] if sel is None else
-                        [enc.decode(c)
-                         for c in np.nonzero(sel[0] >= sel[1])[0]]
-                        for sel in selected]
+                names = [labels[c] for c in sel.codes.tolist()]
+                o = sel.offsets
+                return [names[o[r]:o[r + 1]] for r in range(len(seqs))]
 
     def get_top_labels_batch(self, seqs: Sequence[bytes],
                              num_top_labels: int = 2 ** 62,
@@ -269,34 +282,33 @@ class BatchQuery:
         if with_kmer_counts:
             return self._top_labels_batch_values(seqs, num_top_labels,
                                                  presence_ratio)
-        enc = self.adbg.annotation.encoder
-        out = []
-        for sel in self._selected(seqs, presence_ratio):
-            if sel is None:
-                out.append([])
-                continue
-            counts, min_count = sel
-            out.append(_top_pairs(enc, counts, counts, min_count,
-                                  num_top_labels))
-        return out
+        labels = self.adbg.annotation.encoder.labels
+        sel = self._selected(seqs, presence_ratio)
+        o = sel.offsets
+        return [_top_pairs(labels, sel.codes[o[r]:o[r + 1]],
+                           sel.counts[o[r]:o[r + 1]], num_top_labels)
+                for r in range(len(seqs))]
 
     def _top_labels_batch_values(self, seqs, num_top_labels,
                                  presence_ratio):
         """--query-counts: per read and label the sum of the values over
         the present windows, selected by the presence counts. Without
         values the presence counts stand in for them."""
-        enc = self.adbg.annotation.encoder
-        rows, read_ids, wpr, present, n_present = self._present(seqs)
-        vals_sum, bin_sum = self._read_sums(
-            rows, read_ids, present, len(seqs), lambda v: v,
+        labels = self.adbg.annotation.encoder.labels
+        rows, read_ids, wpr = self._map_batch(seqs)
+        n_present, (vals_sum, bin_sum) = self._read_sums(
+            rows, read_ids, rows >= 0, len(seqs), lambda v: v,
             lambda v: (v > 0).to(torch.int64))
+        n_present, vals_sum, bin_sum = (
+            t.cpu().numpy() for t in (n_present, vals_sum, bin_sum))
         out = []
         for r, s in enumerate(seqs):
             min_count = max(1, math.ceil(presence_ratio * wpr[r]))
             if len(s) < self.adbg.graph.k or n_present[r] < min_count:
                 out.append([])
                 continue
-            out.append(_top_pairs(enc, bin_sum[r], vals_sum[r], min_count,
+            codes = np.nonzero(bin_sum[r] >= min_count)[0]
+            out.append(_top_pairs(labels, codes, vals_sum[r][codes],
                                   num_top_labels))
         return out
 
@@ -345,8 +357,11 @@ class BatchQuery:
             raise ValueError("coordinate queries need a coordinate "
                              "annotation (annotate --coordinates)")
         enc = self.adbg.annotation.encoder
-        rows, read_ids, wpr, present, n_present = self._present(seqs)
-        counts = self._counts(rows, read_ids, present, len(seqs))
+        rows, read_ids, wpr = self._map_batch(seqs)
+        present = rows >= 0
+        n_present, (counts,) = self._read_sums(
+            rows, read_ids, present, len(seqs), torch.ones_like)
+        n_present, counts = n_present.cpu().numpy(), counts.cpu().numpy()
         rec = m.tuples_for_rows(rows[present])
         bounds = np.concatenate([[0], np.cumsum(wpr)])
         out = []
@@ -376,7 +391,9 @@ class BatchQuery:
         code asc). Without values each present window counts 1."""
         C = self.adbg.num_labels
         enc = self.adbg.annotation.encoder
-        rows, read_ids, wpr, present, n_present = self._present(seqs)
+        rows, read_ids, wpr = self._map_batch(seqs)
+        present = rows >= 0
+        n_present = np.bincount(read_ids[present], minlength=len(seqs))
         # (read, label, value) records of every present window's non-zero
         # entries, grouped by (read, label) with the values ascending
         hits = [tuple(x.cpu().numpy() for x in h)
@@ -418,17 +435,28 @@ def _one(sequence: bytes | str) -> List[bytes]:
     return [sequence.encode() if isinstance(sequence, str) else sequence]
 
 
-def _top_pairs(enc, select_counts, counts, min_count: int,
+def _top_pairs(labels, codes, counts,
                num_top_labels: int) -> List[Tuple[str, int]]:
-    """The labels with ``select_counts >= min_count`` and their
-    ``counts``, in code order, or by (count desc, code asc) when more
-    than ``num_top_labels`` survive and only those are kept."""
-    pairs = [(int(c), int(counts[c]))
-             for c in np.nonzero(select_counts >= min_count)[0]]
+    """(label, count) of a read's selected codes (ascending) and their
+    counts, in code order, or by (count desc, code asc) when more than
+    ``num_top_labels`` are selected and only those are kept."""
+    pairs = list(zip(codes.tolist(), counts.tolist()))
     if len(pairs) > num_top_labels:
         pairs.sort(key=lambda p: (-p[1], p[0]))
         pairs = pairs[:num_top_labels]
-    return [(enc.decode(c), n) for c, n in pairs]
+    return [(labels[c], n) for c, n in pairs]
+
+
+@dataclass
+class _Selection:
+    """A batch's selected (read, label) pairs, by read then label code:
+    read r's are ``codes[offsets[r]:offsets[r + 1]]`` with their
+    ``counts`` (the read's windows holding the label); ``passes[r]``:
+    read r has at least min_count present windows."""
+    offsets: List[int]
+    codes: np.ndarray
+    counts: np.ndarray
+    passes: np.ndarray
 
 
 def annotate_sequences(graph: DbgSuccinct,

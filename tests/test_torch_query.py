@@ -3,10 +3,14 @@
 A graph and a column annotation are built by the JAX package; their
 arrays go to the port through ``dbg_from_numpy`` and
 ``annotation_from_numpy``; then node mapping, ``label_count_matrix``,
-``get_labels_batch`` and ``get_top_labels_batch`` must be identical. The
+``get_labels_batch``, ``get_top_labels_batch`` and ``get_top_labels``
+must be identical, on batches that hold every case of the selection
+(``query_batch``). The
 rank/select structures, ``RowSparse.from_coo`` and ``annotate_sequences``
 are compared the same way. Integer data: the tolerance is exact.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,19 +104,99 @@ def test_label_count_matrix(both):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("ratio", [0.0, 0.5, 0.7, 1.0])
-def test_get_labels_batch(both, ratio):
-    jadbg, tadbg, _, queries, _ = both
-    assert (teng.BatchQuery(tadbg).get_labels_batch(queries, ratio)
-            == jeng.BatchQuery(jadbg).get_labels_batch(queries, ratio))
+RATIOS = [0.0, 1 / 3, 0.5, 0.7, 1.0]
+BATCHES = ["mixed", "one", "none", "edge"]
 
 
+def query_batch(both, kind, ratio):
+    """The reads of a batch: ``mixed`` the fixture's queries (cut from the
+    records, random, the empty read, reads shorter than k, one with N);
+    ``one`` a one-read batch; ``none`` reads of which none passes (empty,
+    shorter than k, random: no present window; past ratio 0 also one
+    present window of 61); ``edge`` reads whose
+    labels hold exactly min_count windows, and reads one window short:
+    a piece of a record with a random tail, so that the piece's windows
+    are the present ones."""
+    _, tadbg, records, queries, _ = both
+    k = tadbg.graph.k
+    rng = np.random.default_rng(int(ratio * 1000) + 5)
+    if kind == "mixed":
+        return queries
+    if kind == "one":
+        return [queries[1]]
+    if kind == "none":
+        return [b"", records[0][:k - 1], random_dna(rng, 40),
+                random_dna(rng, k)] + ([records[1][:k] + random_dna(rng, 60)]
+                                       if ratio > 0 else [])
+    long_records = [r for r in records if len(r) >= 60]
+    reads = []
+    for i, windows in enumerate((1, 7, 20, 31, 45)):
+        need = max(1, math.ceil(ratio * windows))
+        for present in (need, need - 1):
+            if present < 1:
+                continue
+            rec = long_records[i % len(long_records)]
+            reads.append(rec[:present + k - 1]
+                         + random_dna(rng, windows - present))
+    return reads
+
+
+def jax_answers(jadbg, call, queries, *args):
+    """The JAX package's ``<call>_batch`` answer, or its per-sequence
+    ``<call>`` answers where no read of the batch has a present window
+    (its batch call fails there, on an empty gather)."""
+    jq = jeng.BatchQuery(jadbg)
+    if (jq._map_batch(queries)[0] >= 0).any():
+        return getattr(jq, call + "_batch")(queries, *args)
+    return [getattr(jadbg, call)(s, *args) for s in queries]
+
+
+@pytest.mark.parametrize("kind", BATCHES)
+@pytest.mark.parametrize("ratio", RATIOS)
+def test_get_labels_batch(both, ratio, kind):
+    jadbg, tadbg, *_ = both
+    queries = query_batch(both, kind, ratio)
+    want = jax_answers(jadbg, "get_labels", queries, ratio)
+    assert teng.BatchQuery(tadbg).get_labels_batch(queries, ratio) == want
+    if kind == "none":
+        assert not any(want)
+    if kind == "edge":   # labels at exactly min_count pass
+        counts, wpr, _ = jeng.BatchQuery(jadbg).label_count_matrix(queries)
+        assert any(row.max() == max(1, math.ceil(ratio * w)) and labels
+                   for row, w, labels in zip(counts, wpr, want))
+
+
+@pytest.mark.parametrize("kind", BATCHES)
 @pytest.mark.parametrize("top", [1, 3, 2 ** 62])
-def test_get_top_labels_batch(both, top):
-    jadbg, tadbg, _, queries, _ = both
-    assert (teng.BatchQuery(tadbg).get_top_labels_batch(queries, top, 0.3)
-            == jeng.BatchQuery(jadbg).get_top_labels_batch(queries, top,
-                                                           0.3))
+def test_get_top_labels_batch(both, top, kind):
+    """The batch call and the per-sequence call; at ``top`` 1 and 3 the
+    cut falls between labels of equal count (two labels a record)."""
+    jadbg, tadbg, *_ = both
+    for ratio in (0.3, 1.0):
+        queries = query_batch(both, kind, ratio)
+        want = jax_answers(jadbg, "get_top_labels", queries, top, ratio)
+        assert (teng.BatchQuery(tadbg).get_top_labels_batch(queries, top,
+                                                            ratio) == want)
+        if kind == "mixed":     # the per-sequence calls of a few of them
+            queries = queries[:6] + queries[-4:]
+        for s in queries:
+            assert (tadbg.get_top_labels(s, top, ratio)
+                    == jadbg.get_top_labels(s, top, ratio)), s
+
+
+@pytest.mark.parametrize("ratio", RATIOS)
+def test_select_pairs_counts_the_answers(both, ratio):
+    """``select_pairs`` grows by the labels of a batch's answers; the calls
+    that copy the whole count matrix leave it as it was."""
+    _, tadbg, _, queries, _ = both
+    bq = teng.BatchQuery(tadbg)
+    n0 = teng.select_pairs
+    answers = bq.get_labels_batch(queries, ratio)
+    assert teng.select_pairs - n0 == sum(map(len, answers)) > 0
+    n0 = teng.select_pairs
+    bq.label_count_matrix(queries)
+    bq.get_top_labels_batch(queries, 2, ratio, with_kmer_counts=True)
+    assert teng.select_pairs == n0
 
 
 @pytest.mark.parametrize("with_counts", [False, True])
