@@ -953,26 +953,24 @@ def _count_quantile(sorted_counts: np.ndarray, q: float) -> int:
 
 def cmd_clean(args):
     """Cleaned contigs or unitigs, with a count sidecar on weighted
-    graphs (reference cli/clean.cpp:28-200): the node min / max-count
-    mask, then unitig-level tip pruning and the median-abundance filter;
-    canonical graphs are written in single (primary) form, so that a
-    canonical rebuild gives back the node set and counts."""
-    from ..graph.cleaning import (clean_node_mask,
-                                  estimate_min_kmer_abundance, node_weights)
+    graphs (reference cli/clean.cpp:28-200): ``graph/cleaning.py
+    clean_graph`` (the node min / max-count mask, then unitig-level tip
+    pruning and the median-abundance filter; canonical graphs in single
+    (primary) form, so that a canonical rebuild gives back the node set
+    and counts), then the writers."""
+    from ..graph.cleaning import NoThreshold, clean_graph, node_weights
     from ..graph.masked import MaskedDbg
-    from ..graph.traversal import (contig_sequences, single_form_mask,
-                                   unitig_sequences)
+    from ..graph.traversal import contig_sequences
     from ..seqio.fasta import ExtendedFastaWriter, FastaWriter
 
     g = _load_graph(args.infile_base or args.fnames[0], args.device,
                     wrap_primary=False)
     has_weights = g.boss.weights is not None
-    node_w = node_weights(g) if has_weights else None
-    node_w_h = node_w.cpu().numpy() if has_weights else None
     if args.min_count_q > 0 or args.max_count_q < 1:
         # count thresholds from quantiles of the nonzero node counts
         if not has_weights:
             raise SystemExit("clean: --min/max-count-q need k-mer counts")
+        node_w_h = node_weights(g).cpu().numpy()
         w = np.sort(node_w_h[node_w_h > 0])
         if args.min_count_q > 0:
             args.min_count = max(args.min_count,
@@ -983,48 +981,35 @@ def cmd_clean(args):
                 else min(args.max_count, mc)
         log(f"count thresholds from quantiles: min {args.min_count} "
             f"max {args.max_count}")
-    prune_unitigs = args.prune_unitigs
-    if prune_unitigs == 0 or args.min_count_auto:
-        # --prune-unitigs 0: the automatic threshold (clean.cpp:76-100)
-        est = estimate_min_kmer_abundance(g, args.num_singletons)
-        if est < 0:
-            if args.fallback < 0:
-                log("Cannot estimate expected minimum k-mer abundance "
-                    "and fallback is disabled (--fallback -1). Terminating.")
-                sys.exit(129)
-            log("Cannot estimate expected minimum k-mer abundance. "
-                f"Using fallback value: {args.fallback}")
-            prune_unitigs = args.fallback
-        else:
-            prune_unitigs = est
-            log(f"Threshold for median k-mer abundance in unitigs: {est}")
-
-    unitig_mode = (args.unitigs or args.prune_tips > 1 or prune_unitigs > 1
-                   or args.smoothing_window > 1)
-    filtered = (args.min_count > 1 or args.max_count is not None
-                or prune_unitigs > 1 or args.prune_tips > 1)
-    if filtered and not has_weights:
+    # --prune-unitigs 0 or --min-count-auto: the automatic threshold
+    estimating = args.prune_unitigs == 0 or args.min_count_auto
+    if (not estimating and not has_weights
+            and (args.min_count > 1 or args.max_count is not None
+                 or args.prune_unitigs > 1 or args.prune_tips > 1)):
         # the JAX package's clean_node_mask reads the node weights even
         # for tip pruning alone (AssertionError in graph/cleaning.py
         # node_weights): a fault of the reference, matched
         raise SystemExit("clean: count or tip filters need a graph built "
                          "with --count-kmers (as in the reference)")
-    mask = clean_node_mask(g, min_count=args.min_count,
-                           max_count=args.max_count,
-                           prune_unitigs=prune_unitigs,
-                           min_tip_size=args.prune_tips, node_w=node_w) \
-        if filtered else None
-    single_form = g.mode == "canonical"
-    if single_form:
-        sf = single_form_mask(g)
-        mask = sf if mask is None else (mask & sf)
-    sub = MaskedDbg(base=g, mask=mask) if mask is not None else g
-    if unitig_mode and not (single_form or mask is not None):
-        seqs, paths = unitig_sequences(sub, return_paths=True)
-    else:
-        # contigs, also after masking, where the unitigs of the masked
-        # graph are the kept paths and kept fragments
-        seqs, paths = contig_sequences(sub, return_paths=True)
+    try:
+        res = clean_graph(
+            g, min_count=args.min_count, max_count=args.max_count,
+            prune_tips=args.prune_tips,
+            prune_unitigs=0 if estimating else args.prune_unitigs,
+            fallback=args.fallback, num_singletons=args.num_singletons,
+            unitigs=args.unitigs or args.smoothing_window > 1)
+    except NoThreshold:
+        log("Cannot estimate expected minimum k-mer abundance "
+            "and fallback is disabled (--fallback -1). Terminating.")
+        sys.exit(129)
+    if res.estimate is not None:
+        if res.estimate < 0:
+            log("Cannot estimate expected minimum k-mer abundance. "
+                f"Using fallback value: {args.fallback}")
+        else:
+            log(f"Threshold for median k-mer abundance in unitigs: "
+                f"{res.estimate}")
+    seqs, paths = res.seqs, res.paths
     out = args.outfile_base
     for suf in (".gz", ".fasta"):
         if out.endswith(suf):
@@ -1039,9 +1024,8 @@ def cmd_clean(args):
                              "counts")
         if not all(a < b for a, b in zip(csq, csq[1:])):
             raise SystemExit("clean: quantiles must increase")
-        kept_nodes = np.concatenate(paths) if paths else \
-            np.zeros(0, np.int64)
-        counts_kept = np.sort(node_w_h[kept_nodes])
+        kept_nodes, w_kept = paths.flat, res.counts.flat
+        counts_kept = np.sort(w_kept)
 
         def quantile(q):
             return _count_quantile(counts_kept, q) if len(counts_kept) else 1
@@ -1052,8 +1036,7 @@ def cmd_clean(args):
             log(f"k-mer count thresholds: min (including): {min_c} "
                 f"max (excluding): {max_c}")
             m2 = np.zeros(g.num_nodes() + 1, bool)
-            m2[kept_nodes] = (node_w_h[kept_nodes] >= min_c) \
-                & (node_w_h[kept_nodes] < max_c)
+            m2[kept_nodes] = (w_kept >= min_c) & (w_kept < max_c)
             sseqs = contig_sequences(MaskedDbg(base=g, mask=m2))
             fb = f"{out}.{qa:g}.{qb:g}"
             with FastaWriter(fb + ".fasta.gz", header=args.header) as w:
@@ -1064,8 +1047,7 @@ def cmd_clean(args):
         return
     if has_weights:
         with ExtendedFastaWriter(out, g.k, header=args.header) as w:
-            for s, p in zip(seqs, paths):
-                counts = node_w_h[p]
+            for s, counts in zip(seqs, res.counts):
                 if args.smoothing_window > 1:
                     counts = _smooth_counts(counts, args.smoothing_window)
                 w.write(s, counts)
@@ -1073,8 +1055,7 @@ def cmd_clean(args):
         with FastaWriter(out + ".fasta.gz", header=args.header) as w:
             for s in seqs:
                 w.write(s)
-    kept = int(mask[1:].sum()) if mask is not None else g.num_nodes()
-    log(f"Cleaned graph: kept {kept}/{g.num_nodes()} nodes, "
+    log(f"Cleaned graph: kept {res.kept}/{g.num_nodes()} nodes, "
         f"{len(seqs)} sequences -> {out}.fasta.gz")
 
 

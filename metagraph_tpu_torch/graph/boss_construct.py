@@ -5,14 +5,14 @@ the single-shard build over every alphabet (modes ``basic``,
 ``canonical`` and ``primary``, with or without k-mer counts, from
 sequences or from pre-counted k-mers; any number of lanes a k-mer):
 
-  collect     upload the uint8 codes; pack every window (DNA in the
-              2-bit domain, the other alphabets at their own B bits,
-              extracted and compacted by the partition kernel), fold to
-              canonical form, sort, dedupe and count
-              (``_sort_unique_ones_body``: sort and partition kernels);
-              for basic and canonical builds, gather the dummy-edge
-              candidates at the per-run boundary windows, whose positions
-              come from the invalid codes on the host. Pre-counted k-mers
+  collect     upload the uint8 codes; pack every window and keep the
+              valid ones (DNA in the 2-bit domain, the other alphabets
+              at their own B bits, extracted and compacted by the
+              partition kernel), fold to canonical form, sort, dedupe
+              and count (``_sort_unique_ones_body``: sort and partition
+              kernels); for basic and canonical builds, gather the
+              dummy-edge candidates at the per-run boundary windows,
+              whose positions come from the invalid codes. Pre-counted k-mers
               (KMC, count sidecars) take ``collect_counted_kmers`` /
               ``_sort_unique_stage``
   rc closure  canonical mode: append the reverse complements
@@ -32,9 +32,9 @@ Primary mode keeps only the canonical form of each k-mer and builds the
 basic graph over those. Sizes are dynamic (PyTorch runs eagerly), so
 the JAX package's capacity classes, retry loops, staged large-input
 finish and host code packing are gone; counts stay device tensors and
-the host syncs only to size arrays: the collect's count, the dummy sets,
-each of the K-2 levels (so the dummy side holds no PAD) and the finish
-statistics.
+the host syncs only to size arrays: the collect's valid windows,
+boundaries and count, the dummy sets, each of the K-2 levels (so the
+dummy side holds no PAD) and the finish statistics.
 """
 
 from __future__ import annotations
@@ -74,17 +74,20 @@ def _masked(lanes: torch.Tensor, n) -> torch.Tensor:
 # collect
 # ---------------------------------------------------------------------------
 
-def host_boundary_windows(inval_sorted: np.ndarray, n: int, K: int
-                          ) -> Tuple[np.ndarray, np.ndarray]:
+def boundary_windows(inval_sorted: torch.Tensor, n: int, K: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Window positions of the per-run boundaries from the sorted
     invalid-code positions: a maximal valid run [a, b) of length >= K
     contributes its last window (sink candidate) and its first (source
     candidate)."""
-    iv = np.concatenate([[-1], inval_sorted.astype(np.int64), [n]])
+    dev = inval_sorted.device
+    iv = torch.cat([torch.tensor([-1], device=dev),
+                    inval_sorted.to(torch.int64),
+                    torch.tensor([n], device=dev)])
     a = iv[:-1] + 1
     b = iv[1:]
     ok = (b - a) >= K
-    return (b[ok] - K).astype(np.int64), a[ok].astype(np.int64)
+    return b[ok] - K, a[ok]
 
 
 def _two_bit(alphabet: Alphabet) -> bool:
@@ -125,12 +128,21 @@ def _collect(codes: torch.Tensor, K: int, B: int, canonical: bool,
         bounds = (gather_nodes(end_pos, lambda w: packing.node_key(
                       packing.to_next(w, K, B, 0), B)),
                   gather_nodes(start_pos, lambda w: packing.node_key(w, B)))
-    lanes = torch.where(ok[None, :], lanes2, packed.PAD_LANE)
-    count = torch.sum(ok, dtype=torch.int32)
+    # the valid windows alone: a read sample has k - 1 invalid windows
+    # a read, which the fold and the sort need not carry (one PAD column
+    # where there are none)
+    keep = torch.nonzero(ok).squeeze(1)
+    del ok
+    n_valid = keep.shape[0]
+    lanes = (lanes2[:, keep] if n_valid
+             else packed.full_pad(1, L2, codes.device))
+    del lanes2, keep
+    count = torch.tensor(n_valid, dtype=torch.int32, device=codes.device)
     if canonical:
         comp2 = tuple(complement[c + 1] - 1 for c in range(4))
         rc = packing.reverse_complement(lanes, K, 2, comp2)
-        take_rc = packed.lt(rc, lanes) & ok
+        take_rc = packed.lt(rc, lanes) & packed.valid_mask(
+            lanes.shape[1], n_valid, codes.device)
         lanes = torch.where(take_rc[None, :], rc, lanes)
     ulanes2, ucounts, ucount = _sort_unique_ones_body(lanes, count)
     ulanes = packed.expand2to4(ulanes2[low:], K)
@@ -240,15 +252,13 @@ def collect_kmers(seqs: Sequence[bytes | str], K: int,
             codes_np = np.concatenate(
                 [codes_np, np.full(K - codes_np.shape[0], INVALID_CODE,
                                    np.uint8)])
+        codes = torch.from_numpy(codes_np).to(dev)
         bound_pos = None
         if with_bounds:
             # the codes window_validity rejects: INVALID and the sentinel
-            inval = np.flatnonzero((codes_np == INVALID_CODE)
-                                   | (codes_np == 0))
-            bound_pos = tuple(
-                torch.from_numpy(p).to(dev) for p in
-                host_boundary_windows(inval, codes_np.shape[0], K))
-        codes = torch.from_numpy(codes_np).to(dev)
+            inval = torch.nonzero((codes == INVALID_CODE)
+                                  | (codes == 0)).squeeze(1)
+            bound_pos = boundary_windows(inval, codes.shape[0], K)
         if suffix:
             ulanes, ucounts, ucount, bounds = _collect_bbit(
                 codes, K, alphabet.bits_per_char, canonical,
@@ -296,22 +306,24 @@ def collect_counted_kmers(chars: np.ndarray, counts: np.ndarray, K: int,
 
 def _add_rc_stage(lanes, counts, count, K: int, B: int, complement):
     """Append the reverse complements of all (unique, canonical-form)
-    k-mers; palindromes double their count (saturated at emit)."""
-    cap = lanes.shape[1]
-    valid = packed.valid_mask(cap, count, lanes.device)
-    rc = packing.reverse_complement(lanes, K, B, complement)
-    pal = packed.eq(rc, lanes) & valid
-    counts = torch.where(pal, counts * 2, counts)
-    add_mask = valid & ~pal
-    n_add = torch.sum(add_mask, dtype=torch.int32)
-    rc_comp, _, (rc_counts,) = pmerge.partition_compact(
-        rc, add_mask, cap, counts)
-    # sort only the rc half, then one linear merge with the sorted half
-    rc_s, (rc_counts_s,) = pmerge.sort_packed(rc_comp, rc_counts)
-    out_s, (counts_s,) = pmerge.merge_sorted(
-        _masked(lanes, count), rc_s, (torch.where(valid, counts, 0),),
-        (rc_counts_s,))
-    return out_s, counts_s, count + n_add
+    k-mers; palindromes double their count (saturated at emit). The
+    ``finish.rc`` span, inside ``finish.dummies``."""
+    with telemetry.span("finish.rc", quiet=True):
+        cap = lanes.shape[1]
+        valid = packed.valid_mask(cap, count, lanes.device)
+        rc = packing.reverse_complement(lanes, K, B, complement)
+        pal = packed.eq(rc, lanes) & valid
+        counts = torch.where(pal, counts * 2, counts)
+        add_mask = valid & ~pal
+        n_add = torch.sum(add_mask, dtype=torch.int32)
+        rc_comp, _, (rc_counts,) = pmerge.partition_compact(
+            rc, add_mask, cap, counts)
+        # sort only the rc half, then one linear merge with the sorted half
+        rc_s, (rc_counts_s,) = pmerge.sort_packed(rc_comp, rc_counts)
+        out_s, (counts_s,) = pmerge.merge_sorted(
+            _masked(lanes, count), rc_s, (torch.where(valid, counts, 0),),
+            (rc_counts_s,))
+        return out_s, counts_s, count + n_add
 
 
 def _rc_node(nk, K: int, B: int, complement):

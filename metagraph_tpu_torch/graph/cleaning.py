@@ -7,18 +7,30 @@ error model to the k-mer coverage histogram (McVean's method, as in
 mccortex's clean_graph); the histogram is small, so the picker is a
 host numpy copy of the JAX package's. The per-node weights, histogram
 and masks are tensors on the graph's device.
+
+``clean_graph`` is what the ``clean`` command runs before it writes
+(reference cli/clean.cpp:28-200), inside the spans ``clean`` (root),
+``clean.threshold``, ``clean.unitigs``, ``clean.keep`` and
+``clean.contigs``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..common import telemetry
 from .masked import MaskedDbg
-from .traversal import unitig_decomposition, unitig_keep_mask
+from .traversal import (Walks, contig_walks, single_form_mask, spell_walks,
+                        split_walks, unitig_decomposition, unitig_keep_mask,
+                        unitig_walks)
+
+# nodes kept by every ``clean_graph`` since import (the nodes of its
+# contigs or unitigs)
+kept_nodes = 0
 
 
 def node_weights(g) -> torch.Tensor:
@@ -148,8 +160,89 @@ def clean_node_mask(g, min_count: int = 1, max_count: Optional[int] = None,
         base = MaskedDbg(base=g, mask=base_mask)
     if prune_unitigs <= 1 and min_tip_size <= 1:
         return base_mask
-    u = unitig_decomposition(base)
-    keep_u = unitig_keep_mask(base, u, min_tip_size, node_w, prune_unitigs)
-    keep = keep_u[u.chain_id] & base_mask
-    keep[0] = False
+    with telemetry.span("clean.unitigs", quiet=True):
+        u = unitig_decomposition(base)
+    with telemetry.span("clean.keep", quiet=True):
+        keep_u = unitig_keep_mask(base, u, min_tip_size, node_w,
+                                  prune_unitigs)
+        keep = keep_u[u.chain_id] & base_mask
+        keep[0] = False
     return keep
+
+
+class NoThreshold(Exception):
+    """The abundance threshold could not be estimated and the fallback is
+    disabled (``fallback`` < 0)."""
+
+
+class Cleaned(NamedTuple):
+    """What ``clean_graph`` keeps: the sequences (``Walks`` of bytes) and
+    their node paths (``Walks`` of host int32 node ids), each path's k-mer
+    counts (None on a graph without counts), the median-abundance
+    threshold used (``threshold``; the estimate, -1 where it failed, or
+    None where none was asked for: ``estimate``) and the number of nodes
+    kept."""
+    seqs: Walks
+    paths: Walks
+    counts: Optional[Walks]
+    threshold: int
+    estimate: Optional[int]
+    kept: int
+
+
+def clean_graph(g, min_count: int = 1, max_count: Optional[int] = None,
+                prune_tips: int = 1, prune_unitigs: int = 1,
+                fallback: int = 5, num_singletons: int = 0,
+                unitigs: bool = False) -> Cleaned:
+    """Clean ``g`` as the reference's cli/clean.cpp:28-200 does before
+    it writes: ``prune_unitigs`` 0 estimates the median-abundance
+    threshold (``fallback`` where that fails; ``NoThreshold`` where the
+    fallback is negative), then the node min / max-count mask, tips
+    shorter than ``prune_tips`` nodes and unreliable unitigs go
+    (``clean_node_mask``); a canonical graph keeps each k-mer in one
+    orientation (single form). Returns the contigs of the kept nodes,
+    or, with ``unitigs`` on a graph that keeps every node, its unitigs,
+    with their paths and counts."""
+    global kept_nodes
+    with telemetry.span("clean", quiet=True):
+        with telemetry.span("clean.threshold", quiet=True):
+            has_weights = g.boss.weights is not None
+            node_w = node_weights(g) if has_weights else None
+            estimate = None
+            if prune_unitigs == 0:
+                # the automatic threshold (clean.cpp:76-100)
+                estimate = estimate_min_kmer_abundance(g, num_singletons)
+                if estimate < 0 and fallback < 0:
+                    raise NoThreshold()
+                prune_unitigs = fallback if estimate < 0 else estimate
+        filtered = (min_count > 1 or max_count is not None
+                    or prune_unitigs > 1 or prune_tips > 1)
+        mask = clean_node_mask(g, min_count=min_count, max_count=max_count,
+                               prune_unitigs=prune_unitigs,
+                               min_tip_size=prune_tips, node_w=node_w) \
+            if filtered else None
+        if g.mode == "canonical":
+            with telemetry.span("clean.keep", quiet=True):
+                sf = single_form_mask(g)
+                mask = sf if mask is None else (mask & sf)
+        with telemetry.span("clean.contigs", quiet=True):
+            if mask is None:
+                sub = g
+                nodes, first = (unitig_walks(g) if unitigs
+                                else contig_walks(g))
+            else:
+                # contigs, also after masking, where the unitigs of the
+                # masked graph are the kept paths and kept fragments
+                sub = MaskedDbg(base=g, mask=mask)
+                nodes, first = contig_walks(sub)
+            seqs = spell_walks(sub, nodes, first)
+            values = (nodes.to(torch.int32),) + (
+                (node_w[nodes],) if has_weights else ())
+            paths, *counts = split_walks(first, *values)
+            kept = int(mask[1:].sum()) if mask is not None \
+                else g.num_nodes()
+        kept_nodes += kept
+        return Cleaned(seqs=seqs, paths=paths,
+                       counts=counts[0] if counts else None,
+                       threshold=prune_unitigs, estimate=estimate,
+                       kept=kept)

@@ -11,16 +11,22 @@ are the chains of the unique-successor function:
      min-propagation in the same rounds;
   3. the strings come from one scatter of node characters into a flat
      buffer on the graph's device (a chain's first node writes its k-mer,
-     every other node its last character), copied to the host once.
+     every other node its last character), copied to the host once with
+     the chains' cuts; text, paths and counts stay one host buffer each,
+     sliced a walk at a time when read (``Walks``).
 
 Contigs join unitigs end to start by the same greedy matching as the
 JAX package and are ordered by a second doubling over the joins, so no
-per-chain Python loop runs. Every tensor lives on the graph's device;
-outputs (sequences, paths) are the JAX package's, order included.
+per-chain Python loop runs. A masked graph's contigs are found among its
+kept nodes alone, renumbered in the order of their ids: the masked-out
+nodes, each a chain of its own, change no choice and no order. Every
+tensor lives on the graph's device; outputs (sequences, paths) are the
+JAX package's, order included.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -30,9 +36,15 @@ import torch
 from ..common import packed
 from ..kmer import packing
 
-# nodes per adjacency or decode call: bounds the temporaries of a
-# 2^26-node graph to a few GiB
-_CHUNK = 1 << 22
+# nodes per adjacency or decode call: bounds their temporaries to a few
+# GiB (the reverse complement's, about 372 B a node, the most), in few
+# enough chunks that a pass's binary searches, a few dozen small kernels
+# a round, do not wait on their launches
+_CHUNK = 1 << 24
+
+# unitigs found by every ``unitig_decomposition`` since import (masked
+# graphs included)
+unitigs = 0
 
 
 @dataclass
@@ -69,7 +81,15 @@ def _next_links(g):
     succ = in_chunks(g.successors, _all_nodes(g))          # (N, sigma-1)
     outdeg = torch.sum(succ > 0, dim=1)
     uniq = torch.sum(succ, dim=1)                           # when outdeg == 1
-    indeg = torch.bincount(succ.reshape(-1), minlength=N + 1)
+    # in-degrees by atomic adds of the successors alone (``bincount``
+    # reads the maximum to the host first, and the empty slots, most of
+    # them, would all add into slot 0, which no link reads)
+    flat = succ.reshape(-1)
+    flat = flat[flat > 0]
+    indeg = torch.zeros((N + 1,), dtype=torch.int32,
+                        device=succ.device).index_add_(
+        0, flat, torch.ones((1,), dtype=torch.int32,
+                            device=succ.device).expand(flat.shape[0]))
     link = (outdeg == 1) & (uniq > 0) & (indeg[torch.clamp(uniq, max=N)] == 1)
     zero = torch.zeros((1,), dtype=torch.int64, device=succ.device)
     nxt = torch.cat([zero, torch.where(link, uniq, 0)])
@@ -108,6 +128,7 @@ def rank_chains(prv: torch.Tensor):
 
 
 def unitig_decomposition(g) -> Unitigs:
+    global unitigs
     _, prv = _next_links(g)
     start_of, pos, in_cycle = rank_chains(prv)
     N1 = prv.shape[0]
@@ -117,6 +138,7 @@ def unitig_decomposition(g) -> Unitigs:
     is_start[0] = False
     starts = torch.nonzero(is_start).squeeze(1)
     U = starts.shape[0]
+    unitigs += U
     chain_rank = torch.zeros((N1,), dtype=torch.int64, device=dev)
     chain_rank[starts] = torch.arange(U, device=dev)
     chain_id = chain_rank[start_of]
@@ -213,17 +235,17 @@ def _chain_nodes(u: Unitigs, chains: torch.Tensor, order, bounds):
     return order[bounds[chains[rep]] + within], offs
 
 
-def _spell(g, nodes: torch.Tensor, first: torch.Tensor):
+def spell_walks(g, nodes: torch.Tensor, first: torch.Tensor) -> "Walks":
     """Strings of consecutive node walks, concatenated in ``nodes``;
     ``first`` flags each walk's first node. Each walk spells its first
     node's k-mer, then the last character of every other node. One
-    scatter on the device, one copy to the host: returns the list of
-    bytes strings."""
+    scatter on the device, one copy of the text and one of its cuts to
+    the host: returns ``Walks`` of bytes strings over the text."""
     k = g.k
     dev = nodes.device
     n = nodes.shape[0]
     if n == 0:
-        return []
+        return Walks(b"", np.zeros((1,), np.int64))
     walk = torch.cumsum(first.to(torch.int64), 0) - 1
     n_walks = int(walk[-1]) + 1
     # entry i of walk s lands at i + (s + 1)(k - 1); a first node's
@@ -240,17 +262,62 @@ def _spell(g, nodes: torch.Tensor, first: torch.Tensor):
         buf[(dst[sl][f] - (k - 1))[:, None] + cols] = chars[f]
     letters = torch.tensor(list(g.alphabet.letters.encode()),
                            dtype=torch.uint8, device=dev)
-    text = letters[buf.long()].cpu().numpy().tobytes()
-    starts = (dst[first] - (k - 1)).cpu().numpy().tolist()
-    ends = starts[1:] + [len(text)]
-    return [text[a:b] for a, b in zip(starts, ends)]
+    bounds = torch.cat([dst[first] - (k - 1),
+                        torch.tensor([buf.shape[0]], device=dev)])
+    return Walks(_host(letters[buf.long()]).tobytes(), _host(bounds))
 
 
-def _split_paths(nodes: torch.Tensor, first: torch.Tensor) -> List[np.ndarray]:
-    if nodes.shape[0] == 0:
-        return []
-    cuts = torch.nonzero(first).squeeze(1)[1:]
-    return np.split(nodes.cpu().numpy().astype(np.int32), cuts.cpu().numpy())
+class Walks(Sequence):
+    """Per-walk host slices of one flat array or bytes string: walk i is
+    ``flat[bounds[i]:bounds[i + 1]]``, made when it is read, so no
+    object a walk is made until then."""
+
+    def __init__(self, flat, bounds: np.ndarray):
+        self.flat, self.bounds = flat, bounds
+
+    def __len__(self) -> int:
+        return len(self.bounds) - 1
+
+    def __getitem__(self, i: int):
+        i = range(len(self))[i]
+        return self.flat[self.bounds[i]:self.bounds[i + 1]]
+
+    def __iter__(self):
+        b = self.bounds.tolist()
+        return (self.flat[x:y] for x, y in zip(b[:-1], b[1:]))
+
+
+def split_walks(first: torch.Tensor, *values: torch.Tensor):
+    """``Walks`` of each of ``values`` (tensors aligned with the walks'
+    nodes; ``first`` flags each walk's first node): one copy of each to
+    the host, the cuts shared."""
+    bounds = torch.cat([torch.nonzero(first).squeeze(1),
+                        torch.tensor([first.shape[0]], device=first.device)])
+    bounds = _host(bounds) if first.shape[0] else np.zeros((1,), np.int64)
+    return tuple(Walks(_host(v), bounds) for v in values)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array: from a card by one copy into page-locked
+    memory (PyTorch's cached pinned blocks; a pageable copy is staged
+    through the CPU at a few GB/s)."""
+    if t.device.type == "cpu":
+        return t.numpy()
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h.numpy()
+
+
+def _no_walks(dev):
+    return (torch.zeros((0,), dtype=torch.int64, device=dev),
+            torch.zeros((0,), dtype=torch.bool, device=dev))
+
+
+def _walk_output(g, nodes, first, return_paths: bool):
+    seqs = list(spell_walks(g, nodes, first))
+    if not return_paths:
+        return seqs
+    return seqs, split_walks(first, nodes.to(torch.int32))[0]
 
 
 def unitig_sequences(g, u: Optional[Unitigs] = None, min_length: int = 0,
@@ -260,11 +327,19 @@ def unitig_sequences(g, u: Optional[Unitigs] = None, min_length: int = 0,
     chain order. ``keep``: optional per-unitig bool filter; on a masked
     graph (``apply_mask``) the masked-out singleton chains are skipped;
     ``return_paths`` also yields each emitted unitig's node path."""
+    nodes, first = unitig_walks(g, u, min_length, apply_mask, keep)
+    return _walk_output(g, nodes, first, return_paths)
+
+
+def unitig_walks(g, u: Optional[Unitigs] = None, min_length: int = 0,
+                 apply_mask: bool = True, keep=None):
+    """The nodes of ``unitig_sequences``' unitigs on the device, in its
+    order, and the flags of each unitig's first node."""
     if u is None:
         u = unitig_decomposition(g)
     k = g.k
     if u.num_unitigs == 0:
-        return ([], []) if return_paths else []
+        return _no_walks(u.pos.device)
     sel = u.lengths + k - 1 >= max(min_length, k)
     mask = getattr(g, "mask", None) if apply_mask else None
     if mask is not None:
@@ -276,11 +351,10 @@ def unitig_sequences(g, u: Optional[Unitigs] = None, min_length: int = 0,
     nodes, offs = _chain_nodes(u, chains, order, bounds)
     first = torch.zeros(nodes.shape, dtype=torch.bool, device=nodes.device)
     first[offs] = True
-    seqs = _spell(g, nodes, first)
-    return (seqs, _split_paths(nodes, first)) if return_paths else seqs
+    return nodes, first
 
 
-def _join_unitigs(g, u: Unitigs, mask):
+def _join_unitigs(g, u: Unitigs):
     """The JAX package's greedy tail -> head matching of unitigs: up to
     sigma - 1 rounds in which every unmatched tail proposes its first
     free head candidate (a successor of its last node that starts
@@ -295,10 +369,7 @@ def _join_unitigs(g, u: Unitigs, mask):
     cand = chain_of_start[torch.clamp(succ, 0, N)]
     cand[succ <= 0] = -1
     tails = torch.arange(U, device=dev)
-    eligible = ~u.is_cycle
-    if mask is not None:
-        eligible &= mask[u.starts]
-    ok = (cand >= 0) & (cand != tails[:, None]) & eligible[:, None]
+    ok = (cand >= 0) & (cand != tails[:, None]) & ~u.is_cycle[:, None]
     ok &= torch.where(cand >= 0, ~u.is_cycle[torch.clamp(cand, min=0)],
                       False)
     used_head = torch.zeros((U,), dtype=torch.bool, device=dev)
@@ -331,13 +402,45 @@ def contig_sequences(g, return_paths: bool = False):
     each join path from its first unitig, by that unitig's chain id
     (masked-out chains skipped), then every unitig on a cycle of joins,
     alone, by chain id."""
+    nodes, first = contig_walks(g)
+    return _walk_output(g, nodes, first, return_paths)
+
+
+class _Kept:
+    """The nodes a masked graph keeps, renumbered 1..M in the order of
+    their ids (``ids``: their base ids), with the masked graph's
+    adjacency: its unitigs, joins and contigs are the masked graph's
+    without the masked-out nodes, each a chain of its own there."""
+
+    def __init__(self, g, ids: torch.Tensor):
+        self.g, self.ids, self.device = g, ids, g.device
+        self.inv = torch.zeros((g.num_nodes() + 1,), dtype=torch.int64,
+                               device=g.device)
+        self.inv[ids] = torch.arange(1, ids.shape[0] + 1, device=g.device)
+
+    def num_nodes(self) -> int:
+        return int(self.ids.shape[0])
+
+    def successors(self, nodes: torch.Tensor) -> torch.Tensor:
+        base = torch.where(nodes > 0, self.ids[torch.clamp(nodes - 1, 0)], 0)
+        return self.inv[self.g.successors(base)]
+
+
+def contig_walks(g):
+    """The nodes of ``contig_sequences``' contigs on the device, in its
+    order, and the flags of each contig's first node. A masked graph's
+    are found among its kept nodes alone."""
+    mask = getattr(g, "mask", None)
+    if mask is not None:
+        ids = torch.nonzero(mask[1:]).squeeze(1) + 1
+        nodes, first = contig_walks(_Kept(g, ids))
+        return ids[nodes - 1], first
     u = unitig_decomposition(g)
     U = u.num_unitigs
-    if U == 0:
-        return ([], []) if return_paths else []
     dev = u.pos.device
-    mask = getattr(g, "mask", None)
-    next_chain, used_head = _join_unitigs(g, u, mask)
+    if U == 0:
+        return _no_walks(dev)
+    next_chain, used_head = _join_unitigs(g, u)
     # rank every chain along its join path by doubling over the inverse
     # joins (chain c is slot c + 1; 0 = no previous)
     prv = torch.zeros((U + 1,), dtype=torch.int64, device=dev)
@@ -345,10 +448,7 @@ def contig_sequences(g, return_paths: bool = False):
     prv[next_chain[tails] + 1] = tails + 1
     root, rank, on_cycle = rank_chains(prv)
     root, rank, on_cycle = root[1:] - 1, rank[1:], on_cycle[1:]
-    live = (torch.ones((U,), dtype=torch.bool, device=dev) if mask is None
-            else mask[u.starts])
-    # a masked chain joins nothing, so its root is itself
-    keep = live[root] & (on_cycle | ~used_head[root])
+    keep = on_cycle | ~used_head[root]
     key = torch.where(on_cycle, U * U + torch.arange(U, device=dev),
                       root * U + rank)
     chains = torch.nonzero(keep).squeeze(1)
@@ -357,5 +457,4 @@ def contig_sequences(g, return_paths: bool = False):
     nodes, offs = _chain_nodes(u, chains, order, bounds)
     first = torch.zeros(nodes.shape, dtype=torch.bool, device=dev)
     first[offs[on_cycle[chains] | (rank[chains] == 0)]] = True
-    seqs = _spell(g, nodes, first)
-    return (seqs, _split_paths(nodes, first)) if return_paths else seqs
+    return nodes, first

@@ -134,7 +134,8 @@ def test_collect_bbit_extract_and_bounds():
     assert torch.equal(lanes[:, :int(count)], want)
     assert bool(packed.top_bit_set(lanes[0, int(count):]).all())
     inval = np.flatnonzero((codes_np == 255) | (codes_np == 0))
-    end_pos, start_pos = tbc.host_boundary_windows(inval, len(codes_np), K)
+    end_pos, start_pos = (p.numpy() for p in tbc.boundary_windows(
+        torch.from_numpy(inval), len(codes_np), K))
     _, _, n_u, (sink_c, src_c) = tbc.collect_kmers(seqs, K, alph,
                                                    device="cpu")
     assert n_u == len({w.tobytes() for w in win[ok]})

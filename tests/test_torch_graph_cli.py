@@ -373,3 +373,57 @@ def test_align_gfa_identical(work, i):
     g, flags = ALIGN_GFA[i]
     run_both(work, ["align", "-i", f"@{g}"] + flags
              + ["-o", f"@pg{i}.gfa", "q.fa"], [f"@pg{i}.path.gfa"])
+
+
+# clean_graph's arguments for each case of CLEAN that cmd_clean passes
+# straight through (the quantile and slice cases compute the CLI's own
+# thresholds and files): (kwargs, smoothing window); None for exit 129
+CLEAN_GRAPH = {
+    0: (dict(min_count=2), 1),
+    1: (dict(max_count=6), 1),
+    3: (dict(prune_tips=22, prune_unitigs=0, fallback=2), 1),
+    4: (dict(prune_unitigs=0, num_singletons=4000), 1),
+    5: (dict(prune_unitigs=3, unitigs=True), 3),
+    8: (dict(unitigs=True), 1),
+    9: (dict(prune_tips=15, unitigs=True), 4),
+    10: (dict(), 1),
+    11: (dict(unitigs=True), 1),
+    12: (dict(prune_unitigs=0, fallback=3), 1),
+    13: None,
+}
+
+
+@pytest.mark.parametrize("i", sorted(CLEAN_GRAPH))
+def test_clean_graph_is_what_clean_writes(work, i):
+    """``graph/cleaning.py clean_graph`` gives the sequences and counts
+    that the port's ``clean`` writes, for the CLI's arguments; with the
+    fallback disabled it raises where the CLI exits 129."""
+    from metagraph_tpu_torch.cli.main import _smooth_counts
+    from metagraph_tpu_torch.graph import io as tio
+    from metagraph_tpu_torch.graph.cleaning import NoThreshold, clean_graph
+    from metagraph_tpu_torch.seqio.fasta import (iter_weighted_records,
+                                                 parse_records)
+    g, argv = CLEAN[i]
+    graph = tio.load_graph(str(work / f"t{g}"), device="cpu")
+    out = str(work / f"tcg{i}")
+    _, code = run(tmain, ["clean", "-i", str(work / f"t{g}")] + argv
+                  + ["-o", out, "--device", "cpu"])
+    if CLEAN_GRAPH[i] is None:
+        assert code == 129
+        with pytest.raises(NoThreshold):
+            clean_graph(graph, prune_unitigs=0, fallback=-1)
+        return
+    kwargs, window = CLEAN_GRAPH[i]
+    res = clean_graph(graph, **kwargs)
+    assert code in (0, None) and len(res.paths) == len(res.seqs)
+    assert res.kept == sum(len(p) for p in res.paths)
+    if graph.boss.weights is None:
+        assert res.counts is None
+        assert list(res.seqs) == [r.seq for r in
+                            parse_records(out + ".fasta.gz")]
+        return
+    written = list(iter_weighted_records(out + ".fasta.gz"))
+    assert list(res.seqs) == [r.seq for r, _ in written]
+    for c, (_, want) in zip(res.counts, written):
+        got = _smooth_counts(c, window) if window > 1 else c
+        np.testing.assert_array_equal(got, want)

@@ -8,8 +8,12 @@ histogram, ``pick_kmer_threshold``, ``clean_node_mask``), both
 differential-assembly masks, and the helpers they call
 (``BitRank.set_positions``, ``LabelEncoder.encode`` / ``in``). Every
 graph is built by the JAX package and loaded by the port from its file,
-so both run on the same arrays; inputs are seeded with numpy.
+so both run on the same arrays; inputs are seeded with numpy. The port's
+``clean_graph`` records its ``clean`` spans and counters, and a
+canonical build its ``finish.rc`` span.
 """
+
+import collections
 
 import jax.numpy as jnp
 import numpy as np
@@ -342,3 +346,91 @@ def test_label_encoder_encode_contains():
     assert "a" in enc and "z" not in enc
     with pytest.raises(KeyError):
         enc.encode("z")
+
+
+@pytest.fixture
+def tracing(monkeypatch):
+    """A fresh span buffer with tracing on, as a traced benchmark run
+    has it."""
+    from metagraph_tpu_torch.common import telemetry
+    monkeypatch.setattr(telemetry, "_records",
+                        collections.deque(maxlen=telemetry.RECORDS_MAX))
+    monkeypatch.setattr(telemetry, "_dropped", 0)
+    monkeypatch.setattr(telemetry, "TRACING", True)
+    return telemetry
+
+
+@pytest.mark.parametrize("kw", [dict(prune_tips=62, prune_unitigs=0,
+                                     fallback=2),
+                                dict(min_count=2, prune_tips=22),
+                                dict(unitigs=True)],
+                         ids=["sample", "count-tips", "unitigs"])
+def test_clean_graph_spans_and_counters(weighted, tracing, monkeypatch, kw):
+    """``clean_graph`` records one ``clean`` root whose children are the
+    ``clean.*`` spans and cover at least 95 % of it; ``kept_nodes`` counts
+    the kept nodes and ``traversal.unitigs`` every decomposition's
+    unitigs."""
+    _, tg = weighted["canonical"]
+    decomposed = []
+
+    def counted(g):
+        u = decompose(g)
+        decomposed.append(u.num_unitigs)
+        return u
+    decompose = tt.unitig_decomposition
+    monkeypatch.setattr(tt, "unitig_decomposition", counted)
+    monkeypatch.setattr(tclean, "unitig_decomposition", counted)
+    kept0, unitigs0 = tclean.kept_nodes, tt.unitigs
+    res = tclean.clean_graph(tg, **kw)
+    assert tclean.kept_nodes - kept0 == res.kept
+    assert res.kept == sum(len(p) for p in res.paths) > 0
+    assert tt.unitigs - unitigs0 == sum(decomposed) > 0
+    recs, dropped = tracing.recorded()
+    assert not dropped
+    (root,) = [r for r in recs if r.name == "clean"]
+    assert root.parent is None
+    mine = [r for r in recs if r.root == root.id and r is not root]
+    assert {r.name for r in mine} <= {"clean.threshold", "clean.unitigs",
+                                      "clean.keep", "clean.contigs"}
+    assert all(r.parent == root.id for r in mine)
+    covered = sum(r.t1 - r.t0 for r in mine)
+    assert covered >= 0.95 * (root.t1 - root.t0)
+
+
+@pytest.mark.parametrize("mode", ["basic", "canonical", "primary"])
+def test_rc_span_only_in_canonical_builds(tracing, mode):
+    """``finish.rc`` (the rc closure) runs inside ``finish.dummies`` of a
+    canonical build and in no other build."""
+    from metagraph_tpu_torch.graph.boss_construct import build_boss
+    rng = np.random.default_rng(9)
+    build_boss([random_dna(rng, 300) for _ in range(4)], 15, mode=mode,
+               device="cpu")
+    recs, _ = tracing.recorded()
+    by_id = {r.id: r for r in recs}
+    rc = [r for r in recs if r.name == "finish.rc"]
+    assert len(rc) == (mode == "canonical")
+    assert all(by_id[r.parent].name == "finish.dummies" for r in rc)
+
+
+@pytest.mark.parametrize("kw", [dict(prune_tips=62, prune_unitigs=0,
+                                     fallback=2),
+                                dict(min_count=2, prune_tips=22),
+                                dict(unitigs=True)],
+                         ids=["sample", "count-tips", "unitigs"])
+def test_clean_graph_walks_read_alike(weighted, kw):
+    """``clean_graph``'s sequences, paths and counts are ``Walks`` over
+    one host buffer each: read by index (negative too), by iteration and
+    by length alike, a sequence k - 1 longer than its path."""
+    _, tg = weighted["canonical"]
+    res = tclean.clean_graph(tg, **kw)
+    seqs = list(res.seqs)
+    assert len(seqs) == len(res.seqs) == len(res.paths) \
+        == len(res.counts) > 0
+    assert all(isinstance(s, bytes) for s in seqs)
+    for i in (0, len(seqs) // 2, -1):
+        assert res.seqs[i] == seqs[i]
+        np.testing.assert_array_equal(res.paths[i], list(res.paths)[i])
+        np.testing.assert_array_equal(res.counts[i], list(res.counts)[i])
+    assert [len(s) for s in seqs] == [len(p) + tg.k - 1 for p in res.paths]
+    with pytest.raises(IndexError):
+        res.seqs[len(seqs)]
